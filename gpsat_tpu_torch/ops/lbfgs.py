@@ -1,0 +1,383 @@
+"""Batched L-BFGS with per-expert convergence (torch port of
+gpsat_tpu/ops/lbfgs.py, single device).
+
+The loop lives at the *batch* level and only the objective is batched: one
+value-and-gradient trial per slot per iteration, a [B] done-mask, and a
+scalar ring pointer into the [m, B, P] curvature history. JAX's
+``while_loop``s become host loops here: each iteration reads one boolean
+(are any slots still running?) back from the device, and everything else
+stays on the device.
+
+The pooled variant (`batched_lbfgs_pool`) runs a `slots`-wide batch whose
+slots refill from the expert queue the moment they converge, so the batch
+never waits for its slowest expert.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+__all__ = ["batched_lbfgs", "batched_lbfgs_pool", "LBFGSResult",
+           "linesearch_policy"]
+
+
+def linesearch_policy(dtype, kind="gpr", n=None):
+    """(max_linesearch_steps, recovery_steps) by working precision, objective
+    family, and (for exact GPR) a LOWER BOUND on the per-expert VALID data
+    size. The measurements behind each branch are recorded at
+    gpsat_tpu/ops/lbfgs.py:linesearch_policy.
+
+    - f32 "gpr": the steepest-descent recovery chain (4 halvings) only when
+      some expert has fewer than 256 valid points.
+    - f32 "vff": always (8, 4).  f32 "sgpr": no recovery halvings.
+    - f64: the conservative scipy-style policy (12, 12) for every family.
+    """
+    if dtype == torch.float32:
+        if kind == "sgpr":
+            return 8, 0
+        if kind == "gpr" and n is not None and n >= 256:
+            return 8, 0
+        return 8, 4
+    return 12, 12
+
+
+class LBFGSResult(dict):
+    """dict with attribute access: x, fun, converged, iterations."""
+
+    def __getattr__(self, item):
+        try:
+            return self[item]
+        except KeyError as e:  # pragma: no cover
+            raise AttributeError(item) from e
+
+
+class Carry(NamedTuple):
+    """The per-iteration L-BFGS state (the JAX carry tuple, in order).
+
+    `it` is the global iteration (ring-pointer base), a host int; `iters`
+    counts per-slot ACCEPTED steps, so slots refilled mid-run get correct
+    per-expert budgets."""
+    it: int
+    x: torch.Tensor         # [B, P]
+    f: torch.Tensor         # [B]
+    g: torch.Tensor         # [B, P]
+    S: torch.Tensor         # [m, B, P]
+    Y: torch.Tensor         # [m, B, P]
+    rho: torch.Tensor       # [m, B]
+    gamma: torch.Tensor     # [B]
+    done: torch.Tensor      # [B] bool
+    iters: torch.Tensor     # [B] int32
+    fail_cnt: torch.Tensor  # [B] int32
+    t: torch.Tensor         # [B] backtracking scale
+    backed: torch.Tensor    # [B] bool
+
+
+def _make_step(batched_value_and_grad, B, P, dtype, max_iter,
+               gtol, ftol, memory_size, max_linesearch_steps,
+               recovery_steps=None):
+    """Build the per-iteration body over the L-BFGS `Carry`.
+
+    ONE trial point per iteration, evaluated with value_and_grad; `t` [B]
+    carries each slot's Armijo backtracking scale ACROSS iterations (halved
+    on rejection, reset on acceptance), so rejections never stall the rest
+    of the batch. Rejected iterations retain the slot's previous ring-history
+    entry, so the preconditioner is not diluted."""
+    m = memory_size
+
+    def two_loop(g, S, Y, rho, gamma, ptr):
+        """Search direction -H g for all experts; ptr is the scalar ring
+        position of the next write."""
+        q = g
+        alpha = [None] * m
+        for i in range(m):
+            idx = (ptr - 1 - i) % m
+            a_i = rho[idx] * torch.sum(S[idx] * q, dim=-1)   # rho=0 -> no-op
+            q = q - a_i[:, None] * S[idx]
+            alpha[idx] = a_i
+        r = gamma[:, None] * q
+        for i in range(m):
+            idx = (ptr - m + i) % m
+            b_i = rho[idx] * torch.sum(Y[idx] * r, dim=-1)
+            coef = torch.where(rho[idx] > 0, alpha[idx] - b_i,
+                               torch.zeros_like(b_i))
+            r = r + coef[:, None] * S[idx]
+        return -r
+
+    t_min = 0.5 ** max_linesearch_steps
+    # the post-reset steepest-descent recovery chain may be shorter (f32
+    # policy: 4 halvings) — see linesearch_policy
+    t_min_rec = 0.5 ** (recovery_steps if recovery_steps is not None
+                        else max_linesearch_steps)
+    # unit-trial cap for steepest-descent-like directions only (no usable
+    # curvature history, or a non-descent two-loop result)
+    _DMAX = 2.0
+    f32 = dtype == torch.float32
+
+    def body(c):
+        it, x, f, g, S, Y, rho, gamma, done, iters, fail_cnt, t, backed = c
+        d = two_loop(g, S, Y, rho, gamma, it)
+        gd = torch.sum(g * d, dim=-1)
+        bad_dir = ~torch.isfinite(gd) | (gd >= 0)
+        d = torch.where(bad_dir[:, None], -g, d)
+        gd = torch.where(bad_dir, -torch.sum(g * g, dim=-1), gd)
+        no_hist = ~torch.any(rho > 0, dim=0)
+        dinf = torch.amax(torch.abs(d), dim=-1)
+        t_base = torch.where(
+            bad_dir | no_hist,
+            torch.clamp_max(_DMAX / torch.clamp_min(dinf, 1e-30), 1.0),
+            torch.ones_like(dinf))
+        step = t * t_base
+
+        x_try = x + step[:, None] * d
+        f_try, g_try = batched_value_and_grad(x_try)
+        accept = (~done) & torch.isfinite(f_try) & (
+            f_try <= f + 1e-4 * step * gd)
+
+        s = x_try - x
+        yv = g_try - g
+        sy = torch.sum(s * yv, dim=-1)
+        s_norm = torch.linalg.vector_norm(s, dim=-1)
+        y_norm = torch.linalg.vector_norm(yv, dim=-1)
+        keep = accept & (sy > 1e-10 * s_norm * y_norm)
+
+        # rejected slots RETAIN their previous entry at the ring position
+        ptr = it % m
+        S = S.clone()
+        Y = Y.clone()
+        rho = rho.clone()
+        S[ptr] = torch.where(keep[:, None], s, S[ptr])
+        Y[ptr] = torch.where(keep[:, None], yv, Y[ptr])
+        rho[ptr] = torch.where(
+            keep, 1.0 / torch.where(sy == 0, torch.ones_like(sy), sy),
+            rho[ptr])
+        yy = torch.sum(yv * yv, dim=-1)
+        gamma = torch.where(keep & (yy > 0), sy / torch.clamp_min(yy, 1e-300),
+                            gamma)
+
+        grad_small = accept & (torch.amax(torch.abs(g_try), dim=-1) < gtol)
+        # f-stagnation on any accepted step from a finite point (pool-
+        # refilled slots carry f=inf through their bootstrap pass, so
+        # isfinite(f) keeps them alive)
+        f_change = accept & torch.isfinite(f) & (
+            torch.abs(f - f_try) <= ftol * torch.clamp_min(
+                torch.maximum(torch.abs(f), torch.abs(f_try)), 1.0))
+        # a slot fails when its backtracking scale is exhausted without an
+        # acceptable point: the first failure resets its curvature history
+        # (steepest-descent recovery with a possibly shorter chain), a second
+        # exhausted chain ends the slot
+        fail = (~accept) & (~done) & (
+            t <= torch.where(fail_cnt >= 1, torch.full_like(t, t_min_rec),
+                             torch.full_like(t, t_min)))
+        fail_cnt = torch.where(
+            fail, fail_cnt + 1,
+            torch.where(accept, torch.zeros_like(fail_cnt), fail_cnt))
+        hard_fail = fail & (fail_cnt >= 2)
+        reset = fail & (~hard_fail) & (fail_cnt == 1)
+        rho = torch.where(reset[None, :], torch.zeros_like(rho), rho)
+        gamma = torch.where(reset, torch.ones_like(gamma), gamma)
+        iters = iters + accept.to(iters.dtype)
+        hit_cap = iters >= max_iter
+        newly_done = (~done) & (grad_small | f_change | hard_fail | hit_cap)
+
+        x = torch.where(accept[:, None], x_try, x)
+        f = torch.where(accept, f_try, f)
+        g = torch.where(accept[:, None], g_try, g)
+        # warm-started trial scale, precision-dependent (see
+        # gpsat_tpu/ops/lbfgs.py:237-265): f32 regrows 2x only after a
+        # CLEAN (first-trial) accept; f64 regrows 4x on every accept
+        one = torch.ones_like(t)
+        if f32:
+            t_new = torch.where(
+                accept & ~backed, torch.minimum(one, t * 2.0),
+                torch.where(accept, t, torch.where(fail, one, t * 0.5)))
+        else:
+            t_new = torch.where(accept, torch.minimum(one, t * 4.0),
+                                torch.where(fail, one, t * 0.5))
+        t = torch.where(done, t, t_new)
+        backed = torch.where(done, backed, ~(accept | fail))
+        done = done | newly_done
+        return Carry(it + 1, x, f, g, S, Y, rho, gamma, done, iters,
+                     fail_cnt, t, backed)
+
+    return body
+
+
+def _init_carry(batched_value_and_grad, x0, gtol, memory_size):
+    B, P = x0.shape
+    m = memory_size
+    dtype, dev = x0.dtype, x0.device
+    f0, g0 = batched_value_and_grad(x0)
+    done0 = ~torch.isfinite(f0) | (torch.amax(torch.abs(g0), dim=-1) < gtol)
+    zi = torch.zeros(B, dtype=torch.int32, device=dev)
+    return Carry(0, x0, f0, g0,
+                 torch.zeros(m, B, P, dtype=dtype, device=dev),
+                 torch.zeros(m, B, P, dtype=dtype, device=dev),
+                 torch.zeros(m, B, dtype=dtype, device=dev),
+                 torch.ones(B, dtype=dtype, device=dev),
+                 done0, zi, zi.clone(),
+                 torch.ones(B, dtype=dtype, device=dev),
+                 torch.zeros(B, dtype=torch.bool, device=dev))
+
+
+def _batch_lbfgs_loop(batched_value_and_grad, x0, max_iter,
+                      gtol, ftol, memory_size, max_linesearch_steps,
+                      recovery_steps=None):
+    """Core batch-level loop. x0: [B, P]. Returns (x, f, converged, iters)."""
+    B, P = x0.shape
+    body = _make_step(batched_value_and_grad, B, P, x0.dtype,
+                      max_iter, gtol, ftol, memory_size, max_linesearch_steps,
+                      recovery_steps)
+    # a slot needs at most (max_linesearch_steps + 1) trials per accepted
+    # step and hard-fail / hit_cap bound every slot: a pure backstop
+    it_cap = max_iter * (max_linesearch_steps + 2)
+    c = _init_carry(batched_value_and_grad, x0, gtol, memory_size)
+    while c.it < it_cap and bool(torch.any(~c.done)):
+        c = body(c)
+    # slots that only exhausted their per-slot budget are not converged
+    return c.x, c.f, c.done & (c.iters < max_iter), c.iters
+
+
+def _value_and_grad_of(fun, args):
+    """Batched value_and_grad of `fun(x [B,P], *args) -> [B]` by autograd
+    (experts are independent, so the gradient of the sum is per expert)."""
+    def vg(x):
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(True)
+            f = fun(xr, *args)
+            (g,) = torch.autograd.grad(f.sum(), xr)
+        return f.detach(), g
+    return vg
+
+
+def batched_lbfgs(fun, x0, args=(), max_iter=500, gtol=1e-6, ftol=1e-11,
+                  memory_size=10, max_linesearch_steps=12,
+                  recovery_steps=None, vg_fun=None):
+    """Minimise the batched objective `fun(x [B, P], *args) -> [B]`.
+
+    `args` leaves have a leading batch dim B. `vg_fun(x, *args) -> (f, g)`,
+    if given, replaces autograd through `fun` (the fused CUDA kernel path).
+    Returns LBFGSResult with x [B, P], fun [B], converged [B], iterations [B].
+    """
+    args = tuple(args)
+    vg = (lambda x: vg_fun(x, *args)) if vg_fun is not None \
+        else _value_and_grad_of(fun, args)
+    x, f, conv, iters = _batch_lbfgs_loop(vg, x0, max_iter, gtol, ftol,
+                                          memory_size, max_linesearch_steps,
+                                          recovery_steps)
+    return LBFGSResult(x=x, fun=f, converged=conv, iterations=iters)
+
+
+# ---------------------------------------------------------------------------
+# pooled execution: a fixed-width slot batch whose slots are refilled from
+# the expert queue the moment they converge. All E experts' data stays on the
+# device; the active slots' args are gathered by expert index for each
+# objective call, and results scatter into [E]-shaped outputs. The harvest /
+# refill step runs every iteration: with no finished slot it changes nothing.
+# A shared ring pointer is safe across refills because refilled slots get
+# zeroed history (rho=0 rows are no-ops in the two-loop recursion).
+# ---------------------------------------------------------------------------
+
+
+def _tree_map(fn, tree):
+    """Apply `fn` to every tensor of a tuple/list/dict/Bijector tree."""
+    from gpsat_tpu_torch.ops.transforms import Bijector
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, Bijector):
+        return tree.map_tensors(fn)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return tree
+
+
+def _pool_core(fun, x0_all, args_all, slots, max_iter, gtol, ftol,
+               memory_size, max_linesearch_steps, vg_fun=None,
+               recovery_steps=None):
+    E, P = x0_all.shape
+    B = slots
+    dtype, dev = x0_all.dtype, x0_all.device
+    m = memory_size
+
+    def gather(ids):
+        """Per-slot arg rows for this iteration's objective call."""
+        return _tree_map(lambda a: a.index_select(0, ids)
+                        if a.ndim >= 1 and a.shape[0] == E else a, args_all)
+
+    def vg_at(ids):
+        args = gather(ids)
+        if vg_fun is not None:
+            return lambda x: vg_fun(x, *args)
+        return _value_and_grad_of(fun, args)
+
+    ids0 = torch.arange(B, device=dev)
+    carry = _init_carry(vg_at(ids0), x0_all[:B], gtol, m)
+    slot_expert = ids0
+    next_expert = torch.tensor(B, device=dev)
+    live = torch.ones(B, dtype=torch.bool, device=dev)
+    # [E + 1] outputs: row E takes the writes of slots that harvest nothing
+    ox = torch.cat([x0_all, x0_all[:1]], dim=0)
+    of = torch.zeros(E + 1, dtype=dtype, device=dev)
+    oc = torch.zeros(E + 1, dtype=torch.bool, device=dev)
+    oi = torch.zeros(E + 1, dtype=torch.int32, device=dev)
+    inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
+
+    while bool(torch.any(live)):
+        step = _make_step(vg_at(slot_expert), B, P, dtype, max_iter, gtol,
+                          ftol, m, max_linesearch_steps, recovery_steps)
+        c = step(carry)
+        harvest = c.done & live
+        idx = torch.where(harvest, slot_expert, torch.full_like(slot_expert, E))
+        ox[idx] = c.x
+        of[idx] = c.f
+        oc[idx] = c.iters < max_iter
+        oi[idx] = c.iters
+        # refill freed slots from the queue (prefix-sum assignment)
+        order = torch.cumsum(harvest.to(torch.int64), dim=0)
+        new_id = next_expert + order - 1
+        ok = harvest & (new_id < E)
+        slot_expert = torch.where(ok, new_id, slot_expert)
+        live = (live & ~harvest) | ok
+        next_expert = torch.clamp_max(next_expert + order[-1], E)
+        okc = ok[:, None]
+        x = torch.where(okc, x0_all.index_select(
+            0, torch.clamp(new_id, 0, E - 1)), c.x)
+        # a refilled slot bootstraps through the NEXT regular iteration:
+        # with f=inf, g=0 the direction is 0, the unchanged point is accepted
+        # on its first trial and that trial's value_and_grad delivers its
+        # (f0, g0); iters=-1 keeps the bootstrap pass off its budget
+        carry = Carry(
+            c.it, x,
+            torch.where(ok, inf, c.f),
+            torch.where(okc, torch.zeros_like(c.g), c.g),
+            torch.where(ok[None, :, None], torch.zeros_like(c.S), c.S),
+            torch.where(ok[None, :, None], torch.zeros_like(c.Y), c.Y),
+            torch.where(ok[None, :], torch.zeros_like(c.rho), c.rho),
+            torch.where(ok, torch.ones_like(c.gamma), c.gamma),
+            torch.where(ok, torch.zeros_like(c.done), c.done),
+            torch.where(ok, torch.full_like(c.iters, -1), c.iters),
+            torch.where(ok, torch.zeros_like(c.fail_cnt), c.fail_cnt),
+            torch.where(ok, torch.ones_like(c.t), c.t),
+            torch.where(ok, torch.zeros_like(c.backed), c.backed))
+    # carry.it = total pool iterations (= trials per slot), a diagnostic
+    return ox[:E], of[:E], oc[:E], oi[:E], carry.it
+
+
+def batched_lbfgs_pool(fun, x0_all, args_all, slots, max_iter=500, gtol=1e-6,
+                       ftol=1e-11, memory_size=10, max_linesearch_steps=12,
+                       vg_fun=None, recovery_steps=None):
+    """Minimise `fun` for E independent problems through a `slots`-wide pool
+    (see the block comment above).
+
+    x0_all: [E, P]; args_all: tree with [E, ...] leaves. Returns LBFGSResult
+    with [E]-shaped fields and `pool_iterations`. Per-expert results equal
+    the one-shot batched loop's.
+    """
+    E, P = x0_all.shape
+    B = int(min(slots, E))
+    x, f, conv, iters, nit = _pool_core(
+        fun, x0_all, tuple(args_all), B, max_iter, gtol, ftol, memory_size,
+        max_linesearch_steps, vg_fun=vg_fun, recovery_steps=recovery_steps)
+    return LBFGSResult(x=x, fun=f, converged=conv, iterations=iters,
+                       pool_iterations=nit)
