@@ -5,14 +5,19 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels from gpsat_tpu_torch/csrc with nvcc (sm_90a);
-  2. hold each kernel against its plain PyTorch version on the card, on the
-     bench workload recipe at E=64, N=400, P=400, D=3 (Matern32 and RBF) and
-     at the batch widths the main path gives each kernel (Matern32), and time
-     both with CUDA events;
-  3. drive the main path, BatchedGPR.fit_predict_many, on the bench `gpr`
-     workload (E=512, N=400, P=400, D=3, f32), check convergence, finite
-     predictions, agreement with an f64 torch.linalg evaluation on a few
-     experts, and that both kernels were launched.
+  2. hold each kernel against its plain PyTorch version on the card and time
+     both with CUDA events: the exact-GPR kernels on the bench `gpr` recipe
+     (E=64, N=400, P=400, D=3, Matern32 and RBF) and at the batch widths the
+     main path gives them; the SGPR kernels (cholinv, stream1, stream2) on
+     the bench `sgpr` recipe (N=2000, M=500 padded to 512, D=3, Matern32 and
+     RBF) at B=64 and at the main path's widths;
+  3. drive BatchedGPR.fit_predict_many on the bench `gpr` workload (E=512,
+     N=400, P=400, D=3, f32): convergence, finite predictions, agreement with
+     an f64 torch.linalg evaluation on a few experts, both kernels launched;
+  4. drive BatchedSGPR.fit_predict_many on the bench `sgpr` workload (E=128,
+     N=2000, P=400, M=500, 48 slots, f32) on the "hybrid" route and then on
+     the "stream" route: the same checks, the launches of cholinv and of the
+     two stream kernels, and agreement of the two routes' objectives.
 The line before the last is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Imports nothing of JAX or gpsat_tpu.
 """
@@ -26,10 +31,14 @@ import numpy as np
 import torch
 
 E_MAIN, E_CMP, N, P, D = 512, 64, 400, 400, 3
+E_SGPR, N_SGPR, M_SGPR = 128, 2000, 500     # the bench `sgpr` workload
 REPS = 5                    # timed launches per kernel, after one warm-up
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 _FP32_FLOPS = 67e12
 _HBM_BYTES_PER_S = 3.35e12
+# cholinv on Kuu: largest accepted max|W^T Kuu W - I| (f64 evaluation of the
+# f32 W); see compare_sgpr_kernels
+RES_TOL = 0.5
 
 
 def vg_flops(N, D):
@@ -196,8 +205,8 @@ def phase_main(cuda_gpr, workload, bench_gpr_engine, slots):
 
     conv = float(np.mean(out["converged"]))
     print(f"main path: E={E_MAIN} N={N} P={P} D={D} slots={slots} "
-          f"pool_iters={engine._last_pool_iterations} (JAX engine on TPU "
-          f"v5e, 69 slots: 232) converged={conv:.4f} wall={wall:.3f} s "
+          f"pool_iters={engine._last_pool_iterations} "
+          f"converged={conv:.4f} wall={wall:.3f} s "
           f"experts/s={E_MAIN / wall:.2f} launches={launches}")
     for k in ("f*", "f*_var", "y_var"):
         require(out["preds"][k].shape == (E_MAIN, P),
@@ -224,6 +233,339 @@ def phase_main(cuda_gpr, workload, bench_gpr_engine, slots):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# SGPR kernels and sweep
+# ---------------------------------------------------------------------------
+
+def sgpr_kernel_inputs(workload, engine, E, kernel, seed):
+    """Packed f32 inputs of the SGPR kernels on the card: the bench `sgpr`
+    recipe with the engine's inducing points, fixed random hyperparameters
+    and one expert with short data and inducing masks. RBF gets 0.15 of the
+    lengthscales: with 500 inducing points at U(0.5, 2) its Kuu is not
+    positive definite in f32 (for cuSOLVER as for the kernel)."""
+    from gpsat_tpu_torch.ops import cuda_sgpr
+    X, y, mask, _ = workload(E, N_SGPR, 1, D, seed=seed)
+    mask = mask.copy()
+    mask[0, 1500:] = False
+    Z, zmask = engine._build_inducing(X, mask)
+    zmask[0, 300:] = False
+    Z[0, 300:] = 0.0
+    rng = np.random.default_rng(seed + 1)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device="cuda")
+    ls = rng.uniform(0.5, 2.0, (E, D)) * (0.15 if kernel == "RBF" else 1.0)
+    params = {"lengthscales": t(ls),
+              "kernel_variance": t(rng.uniform(0.05, 0.5, E)),
+              "likelihood_variance": t(rng.uniform(0.01, 0.1, E))}
+    args = (params, t(X), t(y), t(mask), t(Z), t(zmask))
+    Xp, Zp, m, zm, ls, _, sf2, s2, ybar = cuda_sgpr._prepare(*args)
+    Kuu = cuda_sgpr._kuu(Zp / ls[:, None, :], zm, sf2, kernel, 1e-6)[0]
+    packed = cuda_sgpr._pack_stream(Xp, m, ybar, Zp, zm, ls, sf2, s2)
+    counts = (mask.sum(axis=1).astype(float), zmask.sum(axis=1).astype(float))
+    return Kuu, packed, counts, args
+
+
+def cholinv_residual(A, W):
+    """max |W^T A W - I| over the batch, evaluated in f64: zero for the exact
+    W = U^-1 of A = U^T U, whatever the conditioning of A."""
+    W = W.double()
+    eye = torch.eye(A.shape[1], dtype=torch.float64, device=A.device)
+    return float((W.mT @ A.double() @ W - eye).abs().max())
+
+
+def cholinv_library(A):
+    """The two PyTorch calls that compute cholinv's function."""
+    L, _ = torch.linalg.cholesky_ex(A)
+    eye = torch.eye(A.shape[1], dtype=A.dtype, device=A.device)
+    return torch.linalg.solve_triangular(L.mT, eye.expand_as(L), upper=True)
+
+
+def compare_sgpr_kernels(kernel, Kuu, packed):
+    """Max abs errors of cholinv, stream1 and stream2 against their plain
+    versions on one set of inputs. Tolerances of the JAX package's tests
+    (tests/test_pallas_cholinv.py, tests/test_pallas_sgpr.py at N=2000): W
+    rtol 2e-3 atol 2e-3 and ld rtol 1e-4 atol 1e-4 on B = I + A~A~^T/s2;
+    the streamed sums and gradient lanes rtol 1e-2 atol 1e-2, a~ and trA2
+    rtol 5e-4 atol 2e-2. Kuu carries jitter 1e-6 and a condition number
+    near 1/eps(f32), so two f32 factorisations of it differ entry by entry
+    far beyond that. Its W is held by what defines it instead, whatever the
+    conditioning: the residual max|W^T Kuu W - I|, evaluated in f64, at most
+    RES_TOL and at most five times the residual of the cuSOLVER-based plain
+    version. On an H100 both lie between 5e-3 and 1e-1 over 48 to 128
+    matrices, the kernel's up to 2.7 times the plain's; an error e in one
+    entry of W adds about e sqrt(sf2), so one of the size of a typical
+    entry (200) gives a residual near 100 and one of 1 % of it fails too.
+    Kuu is also held through what consumes W (Bsum from the kernel's W
+    against Bsum from the plain W)."""
+    from gpsat_tpu_torch.ops import cuda_cholinv, cuda_sgpr
+    xt, yt, zt, p = packed
+    Mp = zt.shape[2]
+    eye = torch.eye(Mp, dtype=torch.float32, device="cuda")
+
+    W_u, ld_u = cuda_cholinv.cholinv_batched(Kuu)
+    Wp_u, ldp_u = cuda_cholinv.cholinv_batched_plain(Kuu)
+    require((W_u.tril(-1) == 0).all(), "cholinv: W not exactly upper")
+    require(torch.isfinite(ld_u).all() and torch.isfinite(ldp_u).all(),
+            f"cholinv {kernel}: Kuu of the comparison is not positive definite")
+    res_k, res_p = cholinv_residual(Kuu, W_u), cholinv_residual(Kuu, Wp_u)
+    print(f"  cholinv {kernel} Kuu (jitter 1e-6): max|W^T Kuu W - I| in f64 "
+          f"kernel {res_k:.3e} plain {res_p:.3e} "
+          f"(max |W| {float(W_u.abs().max()):.1f})")
+    require(res_k <= RES_TOL and res_k <= 5.0 * res_p + 1e-4,
+            f"cholinv Kuu {kernel}: residual {res_k} (plain {res_p})")
+    check_close(f"cholinv {kernel} Kuu ld", ld_u, ldp_u, 1e-4, 1e-4)
+
+    got1 = cuda_sgpr.sgpr_stream1(xt, yt, zt, p, W_u, kernel, D)
+    want1 = cuda_sgpr._stream1_plain(xt, yt, zt, p, W_u, kernel, D)
+    e1 = max(check_close(f"stream1 {kernel} Bsum", got1[0], want1[0], 1e-2, 1e-2),
+             check_close(f"stream1 {kernel} a~", got1[1], want1[1], 5e-4, 2e-2),
+             check_close(f"stream1 {kernel} trA2", got1[2], want1[2], 5e-4,
+                         2e-2))
+    require((got1[0] == got1[0].mT).all(), "stream1: Bsum not symmetric")
+    via_plain_W = cuda_sgpr._stream1_plain(xt, yt, zt, p, Wp_u, kernel, D)[0]
+    check_close(f"cholinv {kernel} Kuu through Bsum", got1[0], via_plain_W,
+                2e-3, 2e-3 * float(via_plain_W.abs().max()))
+
+    Bm = want1[0] + eye
+    W_B, ld_B = cuda_cholinv.cholinv_batched(Bm)
+    Wp_B, ldp_B = cuda_cholinv.cholinv_batched_plain(Bm)
+    require((W_B.tril(-1) == 0).all(), "cholinv: W_B not exactly upper")
+    ec = check_close(f"cholinv {kernel} B W", W_B, Wp_B, 2e-3, 2e-3)
+    check_close(f"cholinv {kernel} B ld", ld_B, ldp_B, 1e-4, 1e-4)
+
+    c = (want1[1][:, None, :] @ Wp_B)[:, 0, :]
+    dd = (Wp_B @ c[:, :, None])[:, :, 0].contiguous()
+    Pm = (Wp_B @ (Wp_B.mT @ want1[0])).contiguous()
+    got2 = cuda_sgpr.sgpr_stream2(xt, yt, zt, p, W_u, Pm, dd, kernel, D)
+    want2 = cuda_sgpr._stream2_plain(xt, yt, zt, p, W_u, Pm, dd, kernel, D)
+    e2 = check_close(f"stream2 {kernel} gout", got2, want2, 1e-2, 1e-2)
+    again = cuda_sgpr.sgpr_stream2(xt, yt, zt, p, W_u, Pm, dd, kernel, D)
+    require(torch.equal(got2, again), "stream2 does not repeat bit for bit")
+    return ({"cholinv": ec, "sgpr_stream1": e1, "sgpr_stream2": e2},
+            (Kuu, Bm, W_u, Pm, dd))
+
+
+def check_sgpr_value_f64(kernel, args):
+    """sgpr_vg_batched on both routes against ops/sgpr.neg_elbo in f64 on
+    the same inputs, at the random hyperparameters of the kernel comparison
+    (N=2000, M=500, the first 8 experts, one with short masks): value rtol
+    5e-4 atol 2e-2, the tolerance of tests/test_pallas_sgpr.py at N=2000."""
+    from gpsat_tpu_torch.ops import cuda_sgpr
+    from gpsat_tpu_torch.ops import sgpr as sgpr_math
+    n = 8
+    params, X, y, mask, Z, zmask = args
+    params = {k: v[:n] for k, v in params.items()}
+    rest = (X[:n], y[:n], mask[:n], Z[:n], zmask[:n])
+    ref = sgpr_math.neg_elbo(
+        {k: v.double() for k, v in params.items()}, rest[0].double(),
+        rest[1].double(), rest[2].bool(), rest[3].double(), rest[4].bool(),
+        kernel=kernel, jitter=1e-6)
+    for route in cuda_sgpr.ROUTES:
+        val, _ = cuda_sgpr.sgpr_vg_batched(params, *rest, kernel, 1e-6,
+                                           route=route)
+        rel = float(((val.double() - ref).abs() / ref.abs()).max())
+        print(f"  sgpr value {kernel} route={route} vs f64 neg_elbo ({n} "
+              f"experts, random hyperparameters): max rel err {rel:.3e}")
+        check_close(f"sgpr value {kernel} {route} vs f64", val, ref, 5e-4,
+                    2e-2)
+
+
+def time_sgpr_kernels(kernel, packed, counts, mats):
+    """{kernel: row} with ms, plain_ms, bound_ms, bound_by, library_ms.
+    Useful flops from each expert's valid counts n, m: kernel build
+    m n (3D+8); the two products with the upper-triangular W_u (A~ = W_u^T
+    Kuf, W_u v) m^2 n each, half of a dense product, as the kernels skip
+    W_u's zero half; the symmetric A~A~^T m^2 n; the dense P A~ 2 m^2 n;
+    (D+2) elementwise contractions 3 m n each. So stream1 does 2 m^2 n and
+    stream2 4 m^2 n. Bytes: each input once (W_u as its upper half), each
+    output once. cholinv 2 M^3 / 3 flops and 8 M^2 bytes per matrix (both
+    factorisations of a trial have the padded M)."""
+    from gpsat_tpu_torch.ops import cuda_cholinv, cuda_sgpr
+    xt, yt, zt, p = packed
+    Kuu, Bm, W_u, Pm, dd = mats
+    n, m = counts
+    B, Mp = Kuu.shape[0], Kuu.shape[1]
+    build = float(np.sum(m * n)) * (3 * D + 8)
+    m2n = float(np.sum(m * m * n))
+    mn = float(np.sum(m * n))
+    rows = {}
+
+    def row(fn, plain, flops, nbytes_, library=None):
+        b_ms, b_by = bound_ms(flops, nbytes_)
+        return {"ms": cuda_ms(fn), "plain_ms": cuda_ms(plain),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None if library is None else cuda_ms(library)}
+    rows["cholinv"] = row(
+        lambda: cuda_cholinv.cholinv_batched(Bm),
+        lambda: cuda_cholinv.cholinv_batched_plain(Bm),
+        B * 2.0 * Mp ** 3 / 3.0, B * 8 * Mp * Mp,
+        lambda: cholinv_library(Bm))
+    rows["sgpr_stream1"] = row(
+        lambda: cuda_sgpr.sgpr_stream1(xt, yt, zt, p, W_u, kernel, D),
+        lambda: cuda_sgpr._stream1_plain(xt, yt, zt, p, W_u, kernel, D),
+        build + 2.0 * m2n + 3.0 * mn,
+        nbytes(xt, yt, zt, p) + nbytes(W_u) // 2
+        + B * (Mp * Mp + Mp + 1) * 4)
+    rows["sgpr_stream2"] = row(
+        lambda: cuda_sgpr.sgpr_stream2(xt, yt, zt, p, W_u, Pm, dd, kernel, D),
+        lambda: cuda_sgpr._stream2_plain(xt, yt, zt, p, W_u, Pm, dd, kernel,
+                                         D),
+        build + 4.0 * m2n + 3.0 * (D + 2) * mn,
+        nbytes(xt, yt, zt, p, Pm, dd) + nbytes(W_u) // 2 + B * 8 * 4)
+    return rows
+
+
+def phase_sgpr_kernels(workload, engine, widths):
+    """cholinv, stream1 and stream2 against their plain versions: B=64 for
+    Matern32 and RBF, then Matern32 at the widths the main path gives them
+    (`widths`: the pool's slots for all three, and the fill chunk's width
+    for cholinv, which is reported on a line of its own)."""
+    errs = {"cholinv": 0.0, "sgpr_stream1": 0.0, "sgpr_stream2": 0.0}
+    for kernel in ("Matern32", "RBF"):
+        Kuu, packed, counts, args = sgpr_kernel_inputs(workload, engine,
+                                                       E_CMP, kernel, seed=1)
+        err, mats = compare_sgpr_kernels(kernel, Kuu, packed)
+        check_sgpr_value_f64(kernel, args)
+        times = time_sgpr_kernels(kernel, packed, counts, mats)
+        for key in errs:
+            errs[key] = max(errs[key], err[key])
+            r = times[key]
+            print(f"kernel {key} {kernel} B={E_CMP}: max_abs_err "
+                  f"{err[key]:.3e} kernel {r['ms']:.3f} ms plain "
+                  f"{r['plain_ms']:.3f} ms bound {r['bound_ms']:.4f} ms")
+    rows = {}
+    for width in sorted(set(widths.values())):
+        Kuu, packed, counts, _ = sgpr_kernel_inputs(workload, engine, width,
+                                                    "Matern32", seed=3)
+        err, mats = compare_sgpr_kernels("Matern32", Kuu, packed)
+        times = time_sgpr_kernels("Matern32", packed, counts, mats)
+        for key in errs:
+            r = times[key]
+            print(f"kernel {key} Matern32 at width B={width}: max_abs_err "
+                  f"{err[key]:.3e} kernel {r['ms']:.3f} ms plain "
+                  f"{r['plain_ms']:.3f} ms library {r['library_ms']} ms "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            if width == widths["pool"]:
+                rows[key] = {"max_abs_err": max(err[key], errs[key]), **r}
+    return rows
+
+
+def phase_sgpr_main(cuda_gpr, workload, bench_sgpr_engine, slots):
+    """BatchedSGPR.fit_predict_many on the bench sgpr workload, once per
+    route. Returns {kernel name: launches} of each route's run."""
+    from gpsat_tpu_torch.ops import sgpr as sgpr_math
+
+    X, y, mask, Xs = workload(E_SGPR, N_SGPR, P, D)
+    outs, launches = {}, {}
+    for route in ("hybrid", "stream"):
+        engine = bench_sgpr_engine(D, M_SGPR, route=route)
+        require(engine.device.type == "cuda" and
+                engine.dtype == torch.float32,
+                f"engine on {engine.device} in {engine.dtype}")
+        cuda_gpr.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.fit_predict_many(X, y, mask, Xs=Xs, slots=slots)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in cuda_gpr.launch_counts().items() if v}
+        conv = float(np.mean(out["converged"]))
+        print(f"sgpr sweep route={route}: E={E_SGPR} N={N_SGPR} P={P} D={D} "
+              f"M={M_SGPR} slots={slots} "
+              f"pool_iters={engine._last_pool_iterations} "
+              f"converged={conv:.4f} wall={wall:.3f} s "
+              f"experts/s={E_SGPR / wall:.2f} launches={counts} peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for k in ("f*", "f*_var", "y_var"):
+            require(out["preds"][k].shape == (E_SGPR, P),
+                    f"{k} shape {out['preds'][k].shape}")
+            require(np.isfinite(out["preds"][k]).all(), f"non-finite {k}")
+        require(np.isfinite(out["objective"]).all(), "non-finite objective")
+        require(conv >= 0.99, f"{route}: converged fraction {conv} < 0.99")
+        require(counts.get("cholinv", 0) > 0, f"cholinv not launched: {counts}")
+        if route == "stream":
+            require(counts.get("sgpr_stream1", 0) > 0 and
+                    counts.get("sgpr_stream1") == counts.get("sgpr_stream2"),
+                    f"stream kernels' launches: {counts}")
+        else:
+            require("sgpr_stream1" not in counts, f"hybrid launched {counts}")
+
+        # predictions against an f64 ops/sgpr.predict at the fitted
+        # parameters and the engine's inducing points, on the first experts
+        n = 8
+        params = {k: torch.tensor(out["params"][k][:n], dtype=torch.float64)
+                  for k in engine.HYPER_NAMES}
+        ref = sgpr_math.predict(
+            params, torch.tensor(X[:n]), torch.tensor(y[:n]),
+            torch.tensor(mask[:n]),
+            torch.tensor(out["params"]["inducing_points"][:n]),
+            torch.tensor(out["inducing_mask"][:n]), torch.tensor(Xs[:n]),
+            kernel="Matern32", jitter=1e-6)
+        err = max(float(np.max(np.abs(out["preds"][k][:n] - ref[k].numpy())))
+                  for k in ("f*", "f*_var"))
+        print(f"  {route} predictions vs f64 reference ({n} experts): "
+              f"max_abs_err {err:.3e}")
+        require(err < 2e-2, f"{route}: predictions disagree with f64: {err}")
+        outs[route], launches[route] = out, counts
+
+    # The two routes compute one objective: at the same parameters (the
+    # hybrid sweep's optima, where Kuu is near singular in f32) their values
+    # agree to twice the f32 tolerance of the kernels (rtol 1e-3 atol 2e-2),
+    # and the hybrid's with the sweep's reported ELBO to rtol 5e-4. An
+    # f64 ops/sgpr.neg_elbo at those parameters is printed beside them and
+    # held only to 5 %: the f32 optimiser runs the lengthscales up to where
+    # Kuu (jitter 1e-6) is near singular in f32, and there any f32
+    # evaluation of the collapsed bound is tens of nats off the f64 one
+    # (at random hyperparameters it agrees to rtol 5e-4: phase 2,
+    # check_sgpr_value_f64). The JAX package's f32 sweep ends the same way:
+    # tests/test_torch_sgpr_engine.py::
+    # test_f32_sweep_ends_where_f32_cannot_evaluate_the_bound.
+    from gpsat_tpu_torch.ops import cuda_sgpr
+    n = 16
+    hyb = outs["hybrid"]
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(a[:n], dtype=dtype, device="cuda")
+    args = ({k: t(hyb["params"][k]) for k in engine.HYPER_NAMES}, t(X), t(y),
+            t(mask), t(hyb["params"]["inducing_points"]),
+            t(hyb["inducing_mask"]))
+    val_h, _ = cuda_sgpr.sgpr_vg_batched(*args, "Matern32", 1e-6,
+                                         route="hybrid")
+    val_s, _ = cuda_sgpr.sgpr_vg_batched(*args, "Matern32", 1e-6,
+                                         route="stream")
+    ref = sgpr_math.neg_elbo(
+        {k: torch.tensor(hyb["params"][k][:4], dtype=torch.float64)
+         for k in engine.HYPER_NAMES}, torch.tensor(X[:4]),
+        torch.tensor(y[:4]), torch.tensor(mask[:4]),
+        torch.tensor(hyb["params"]["inducing_points"][:4]),
+        torch.tensor(hyb["inducing_mask"][:4]), kernel="Matern32",
+        jitter=1e-6)
+    err = check_close("routes' values at the same parameters", val_s, val_h,
+                      1e-3, 2e-2)
+    check_close("reported ELBO", -val_h, torch.tensor(hyb["objective"][:n]),
+                5e-4, 2e-2)
+    err64 = check_close("hybrid value vs f64", val_h[:4], ref, 5e-2, 0.0)
+    print(f"  objective at the hybrid optima: hybrid vs stream max abs diff "
+          f"{err:.3e}, hybrid vs f64 {err64:.3e}")
+    # The optima themselves: in f32 both pools stop on f-stagnation (ftol
+    # 1e-9 is below the f32 resolution of a value of order 3e3), at nearby
+    # points of a flat optimum where the f32 value itself is uncertain, so
+    # they are held loosely: the median difference to 0.5 % of the mean
+    # |ELBO|, every expert to 5 %.
+    a, b = hyb["objective"], outs["stream"]["objective"]
+    diff = np.abs(a - b)
+    print(f"  ELBO at the two routes' optima: max abs diff {diff.max():.3e} "
+          f"median {np.median(diff):.3e} (mean |ELBO| "
+          f"{np.mean(np.abs(a)):.1f})")
+    require(np.median(diff) <= 5e-3 * np.mean(np.abs(a)),
+            f"median ELBO difference between the routes {np.median(diff)}")
+    np.testing.assert_allclose(a, b, rtol=5e-2)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -231,7 +573,9 @@ def main():
     from gpsat_tpu_torch.ops import _build, cuda_gpr
     from gpsat_tpu_torch.parallel.scheduler import (auto_batch_size,
                                                     bucket_level)
-    from gpsat_tpu_torch.profile_sweep import bench_gpr_engine, workload
+    from gpsat_tpu_torch.profile_sweep import (bench_gpr_engine,
+                                               bench_sgpr_engine, sgpr_slots,
+                                               workload)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -248,7 +592,19 @@ def main():
     slots = min(E_MAIN, auto_batch_size(N, P, device=torch.device("cuda")))
     widths = {"vg": slots, "predict": min(1024, bucket_level(E_MAIN))}
     rows = phase_kernels(cuda_gpr, workload, widths)
+    sgpr_engine = bench_sgpr_engine(D, M_SGPR)
+    s_slots = sgpr_slots(E_SGPR, N_SGPR, M_SGPR)
+    X0 = np.zeros((E_SGPR, N_SGPR, D))
+    s_widths = {"pool": s_slots,
+                "fill": sgpr_engine._fill_chunk_width(E_SGPR, X0, None,
+                                                      s_slots, True)}
+    rows.update(phase_sgpr_kernels(workload, sgpr_engine, s_widths))
     launches = phase_main(cuda_gpr, workload, bench_gpr_engine, slots)
+    s_launches = phase_sgpr_main(cuda_gpr, workload, bench_sgpr_engine,
+                                 s_slots)
+    launches["cholinv"] = s_launches["hybrid"]["cholinv"]
+    launches["sgpr_stream1"] = s_launches["stream"]["sgpr_stream1"]
+    launches["sgpr_stream2"] = s_launches["stream"]["sgpr_stream2"]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -262,10 +618,18 @@ def main():
              "gpsat_tpu/ops/pallas_gpr.py:602"),
             ("posterior_predict", "predict",
              "gpsat_tpu_torch/csrc/gp_predict.cu",
-             "gpsat_tpu/ops/pallas_gpr.py:952")):
+             "gpsat_tpu/ops/pallas_gpr.py:952"),
+            ("cholinv", "cholinv", "gpsat_tpu_torch/csrc/gp_cholinv.cu",
+             "gpsat_tpu/ops/pallas_cholinv.py:86"),
+            ("sgpr_stream1", "sgpr_stream1",
+             "gpsat_tpu_torch/csrc/gp_sgpr_stream.cu",
+             "gpsat_tpu/ops/pallas_sgpr.py:636"),
+            ("sgpr_stream2", "sgpr_stream2",
+             "gpsat_tpu_torch/csrc/gp_sgpr_stream.cu",
+             "gpsat_tpu/ops/pallas_sgpr.py:688")):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
-                        **rows[key], "library_ms": None})
+                        "library_ms": None, **rows[key]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,11 +7,13 @@ jax or any ``gpsat_tpu`` module, and keeps its own copies of what it needs.
 
 Layout
 ------
-- ``gpsat_tpu_torch.ops``      : masked GP math (kernels, exact GPR), bijectors,
-                                 packing, batched L-BFGS, and the CUDA kernel
-                                 wrappers (``ops/cuda_gpr.py``, sources in
-                                 ``csrc/``).
-- ``gpsat_tpu_torch.models``   : ``BatchedGPR``, the exact-GPR sweep engine.
+- ``gpsat_tpu_torch.ops``      : masked GP math (kernels, exact GPR, SGPR),
+                                 bijectors, packing, batched L-BFGS, and the
+                                 CUDA kernel wrappers (``ops/cuda_gpr.py``,
+                                 ``ops/cuda_cholinv.py``, ``ops/cuda_sgpr.py``;
+                                 sources in ``csrc/``).
+- ``gpsat_tpu_torch.models``   : ``BatchedGPR`` and ``BatchedSGPR``, the
+                                 exact-GPR and SGPR sweep engines.
 - ``gpsat_tpu_torch.parallel`` : expert bucketing and batch sizing.
 - ``gpsat_tpu_torch.weights``  : carry parameters and optimiser states over
                                  from the JAX package as numpy arrays.

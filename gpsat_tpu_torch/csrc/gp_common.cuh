@@ -1,4 +1,5 @@
-// Device code shared by the exact-GPR kernels (gp_vg.cu, gp_predict.cu).
+// Device code shared by the GP kernels (gp_vg.cu, gp_predict.cu,
+// gp_cholinv.cu, gp_sgpr_stream.cu).
 //
 // Replaces the shared pieces of gpsat_tpu/ops/pallas_gpr.py: the correlation
 // functions _phi / _phi_grad (:64, :80) and the blocked factor + inverse
@@ -222,17 +223,40 @@ static __device__ __forceinline__ float gp_kval(const GpShared& s, int r,
   return v;
 }
 
+// Where gp_factor_invert takes the entries of A from: rebuilt from the
+// staged coordinates (the exact-GPR kernels) ...
+template <int KID>
+struct GpKernelSource {
+  const GpShared& s;
+  int D, Np;
+  float sf2, noise;
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    return gp_kval<KID>(s, r, c, D, Np, sf2, noise);
+  }
+};
+
+// ... or read from a row-major matrix in device memory (gp_cholinv.cu).
+struct GpMatrixSource {
+  const float* A;
+  int lda;
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    return A[(size_t)r * lda + c];
+  }
+};
+
 // Blocked left-looking Cholesky A = U^T U with the diagonal tiles inverted
 // on the way (tile row k of U is W_kk^T (A_k. - sum_{p<k} U_pk^T U_p.)),
 // then the off-diagonal tiles of W = U^{-1} by the block recurrence
-// W_ij = -W_ii sum_{i<q<=j} U_iq W_qj. U and W are Np x Np row-major views
-// with leading dimension ld; only their upper tiles are written (diagonal
-// tiles with explicit zeros below the diagonal) and only those are read.
-// Returns sum log diag U in every thread.
-template <int KID>
-static __device__ float gp_factor_invert(const GpShared& s, float* U,
-                                         float* W, int ld, int D, int Np,
-                                         float sf2, float noise) {
+// W_ij = -W_ii sum_{i<q<=j} U_iq W_qj. `src(r, c)` gives the entry of A (only
+// upper tiles are asked for). U and W are Np x Np row-major views with
+// leading dimensions ldu and ldw; only their upper tiles are written
+// (diagonal tiles with explicit zeros below the diagonal) and only those are
+// read. Returns sum log diag U in every thread.
+template <typename Source>
+static __device__ float gp_factor_invert_from(const Source& src,
+                                              const GpShared& s, float* U,
+                                              int ldu, float* W, int ldw,
+                                              int Np) {
   const int tid = threadIdx.x;
   const int r0 = (tid >> 4) * 2, c0 = (tid & 15) * 2;
   const int nb = Np / GP_T;
@@ -241,15 +265,14 @@ static __device__ float gp_factor_invert(const GpShared& s, float* U,
     for (int j = k; j < nb; ++j) {
       const int jT = j * GP_T;
       float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-      if (k > 0) tile_mma<true, false>(acc, U + kT, ld, U + jT, ld, kT, s);
+      if (k > 0) tile_mma<true, false>(acc, U + kT, ldu, U + jT, ldu, kT, s);
       float* C = (j == k) ? s.St : s.Ct;
 #pragma unroll
       for (int a = 0; a < 2; ++a)
 #pragma unroll
         for (int b = 0; b < 2; ++b)
           C[(r0 + a) * GP_TS + c0 + b] =
-              gp_kval<KID>(s, kT + r0 + a, jT + c0 + b, D, Np, sf2, noise) -
-              acc[a][b];
+              src(kT + r0 + a, jT + c0 + b) - acc[a][b];
       __syncthreads();
       if (j == k) {
         if (tid < 32) {
@@ -261,9 +284,9 @@ static __device__ float gp_factor_invert(const GpShared& s, float* U,
         for (int a = 0; a < 2; ++a)
 #pragma unroll
           for (int b = 0; b < 2; ++b) {
-            const size_t o = (size_t)(kT + r0 + a) * ld + kT + c0 + b;
-            U[o] = s.St[(r0 + a) * GP_TS + c0 + b];
-            W[o] = s.Wt[(r0 + a) * GP_TS + c0 + b];
+            const int r = kT + r0 + a, c = kT + c0 + b;
+            U[(size_t)r * ldu + c] = s.St[(r0 + a) * GP_TS + c0 + b];
+            W[(size_t)r * ldw + c] = s.Wt[(r0 + a) * GP_TS + c0 + b];
           }
       } else {
         // U_kj = W_kk^T C (W_kk upper: rows q <= r contribute)
@@ -280,7 +303,7 @@ static __device__ float gp_factor_invert(const GpShared& s, float* U,
         for (int a = 0; a < 2; ++a)
 #pragma unroll
           for (int b = 0; b < 2; ++b)
-            U[(size_t)(kT + r0 + a) * ld + jT + c0 + b] = o[a][b];
+            U[(size_t)(kT + r0 + a) * ldu + jT + c0 + b] = o[a][b];
       }
       __syncthreads();
     }
@@ -291,8 +314,8 @@ static __device__ float gp_factor_invert(const GpShared& s, float* U,
     for (int i = j - 1; i >= 0; --i) {
       const int iT = i * GP_T;
       float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-      tile_mma<false, false>(acc, U + (size_t)iT * ld + iT + GP_T, ld,
-                             W + (size_t)(iT + GP_T) * ld + jT, ld,
+      tile_mma<false, false>(acc, U + (size_t)iT * ldu + iT + GP_T, ldu,
+                             W + (size_t)(iT + GP_T) * ldw + jT, ldw,
                              jT - iT, s);
 #pragma unroll
       for (int a = 0; a < 2; ++a)
@@ -301,7 +324,7 @@ static __device__ float gp_factor_invert(const GpShared& s, float* U,
           s.Ct[(r0 + a) * GP_TS + c0 + b] = acc[a][b];
       for (int e = tid; e < GP_T * GP_T; e += GP_THREADS) {
         const int r = e / GP_T, c = e % GP_T;
-        s.Wt[r * GP_TS + c] = W[(size_t)(iT + r) * ld + iT + c];
+        s.Wt[r * GP_TS + c] = W[(size_t)(iT + r) * ldw + iT + c];
       }
       __syncthreads();
       float o[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
@@ -317,11 +340,21 @@ static __device__ float gp_factor_invert(const GpShared& s, float* U,
       for (int a = 0; a < 2; ++a)
 #pragma unroll
         for (int b = 0; b < 2; ++b)
-          W[(size_t)(iT + r0 + a) * ld + jT + c0 + b] = -o[a][b];
+          W[(size_t)(iT + r0 + a) * ldw + jT + c0 + b] = -o[a][b];
       __syncthreads();
     }
   }
   return s.scal[0];
+}
+
+// The exact-GPR form: A is the masked noisy kernel matrix of the staged
+// expert, U and W share one workspace of leading dimension ld.
+template <int KID>
+static __device__ float gp_factor_invert(const GpShared& s, float* U,
+                                         float* W, int ld, int D, int Np,
+                                         float sf2, float noise) {
+  const GpKernelSource<KID> src{s, D, Np, sf2, noise};
+  return gp_factor_invert_from(src, s, U, ld, W, ld, Np);
 }
 
 // t1 = W^T y and alpha = W t1 = A^{-1} y into shared memory.
@@ -346,7 +379,7 @@ static __device__ void gp_alpha(const GpShared& s, const float* W, int ld,
 // Common launch plumbing: opt in to the dynamic shared memory the block
 // needs, launch, and report the launch status.
 template <typename KernelT, typename... Args>
-static int gp_launch(KernelT kernel, int blocks, size_t smem,
+static int gp_launch(KernelT kernel, dim3 blocks, size_t smem,
                      cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

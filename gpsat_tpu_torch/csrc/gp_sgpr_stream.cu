@@ -1,0 +1,451 @@
+// The two N-streamed kernels of the SGPR collapsed-ELBO value and gradient.
+//
+// Replace gpsat_tpu/ops/pallas_sgpr.py:_sgpr_stream1_kernel (:636, called by
+// _sgpr_stream1_call :788) and _sgpr_stream2_kernel (:688, called by
+// _sgpr_stream2_call :835), with the routine that stages their tiles,
+// _build_kuf_at_tiles (:600). Inputs (all f32):
+//   xt [B][8][Np]   data coordinates (dims 0..D-1), float mask in row 7
+//   yt [B][Np]      masked observations ybar
+//   zt [B][8][Mp]   inducing coordinates, float mask in row 7
+//   p  [B][8]       ls_0..ls_{D-1}, sf2 @5, s2 @6
+//   Wu [B][Mp][Mp]  W_u = U_u^{-1}, upper triangular with exact zeros below
+//                   the diagonal (the output of gp_cholinv.cu); the kernels
+//                   skip the zero half of every product with it
+// Np is a multiple of GS_PW (128) and Mp of 128.
+//
+// stream1 -> Bsum [B][Mp][Mp] = A~ A~^T / s2, at [B][Mp] = A~ ybar,
+//            trA2 [B] = |A~|_F^2, with A~ = W_u^T Kuf.
+// stream2 (plus P [B][Mp][Mp] = I - B^{-1}, dd [B][Mp] = B^{-1} a~)
+//         -> gout [B][8]: lanes 1..D the uf part of d/dlog ls_j, lane 6 the
+//            uf part of d/dlog sf2, from
+//              beta = ybar/s2 - A~^T dd/s2^2,  v = P A~ + dd beta^T,
+//              Kbar_uf = -W_u v / s2,
+//            reduced elementwise against sf2 phi and sf2 F q2_j (never the
+//            rank-1 expansion, which cancels at coincident points).
+//
+// Design. The data axis is cut into panels of GS_PW columns. Block (e, s)
+// of a (B, S) grid walks panels s, s+S, ... of expert e in series: it
+// builds the Kuf panel [Mp x GS_PW] in its slice of a device-memory
+// workspace, turns it into A~ in place (tile rows in descending order: row
+// i of W_u^T Kuf reads only Kuf rows <= i), and accumulates its own partial
+// outputs. A second kernel adds the S partials of each expert in a fixed
+// order, so a run repeats itself bit for bit: there are no atomics. Every
+// product is a GS_T x GS_T output tile by gs_mma64: each thread owns a 4x4
+// micro-tile and reads its operands from shared memory 16 bytes at a time.
+// Bound on an H100: FP32 operations against ~6 M^2 bytes per expert. stream1
+// needs 2 M^2 N (the triangular W_u^T Kuf and the symmetric A~ A~^T, M^2 N
+// each), stream2 4 M^2 N (A~ again, the dense P A~ at 2 M^2 N, the
+// triangular W_u v). The tile products run on the CUDA cores, below the peak.
+#include "gp_common.cuh"
+
+#define GS_PW 128  // panel width (data columns per pass); Np is a multiple
+#define GS_T 64    // output tile edge of gs_mma64; divides GS_PW and Mp
+#define GS_KC 32   // depth of one staged chunk
+#define GS_TS 68   // padded row stride of a staged chunk (16-byte multiple)
+
+// gs_mma64's stage (2 x GS_KC x GS_TS floats) is the front of the block's
+// shared memory: it overlays the tiles As, Bs, St, Wt, Ct of GpShared, which
+// the stream kernels use for nothing else, and must end before GpShared::red.
+static_assert(2 * GS_KC * GS_TS <= 5 * GP_TILE_ELEMS,
+              "gs_mma64's stage overruns the five tiles of GpShared");
+static_assert(GS_TS % 4 == 0 && GS_TS >= GS_T && GS_PW % GS_T == 0,
+              "staged rows are read as float4 and hold one tile row");
+
+struct GsShared {
+  float* zs;    // [D][Mp] inducing coordinates / lengthscales
+  float* zm;    // [Mp] inducing mask
+  float* vec;   // [Mp] stream1: a~ accumulator; stream2: dd
+  float* xs;    // [D][GS_PW] panel coordinates / lengthscales
+  float* mx;    // [GS_PW] panel data mask
+  float* yv;    // [GS_PW] panel ybar
+  float* beta;  // [GS_PW] stream2: beta of the panel
+};
+
+static inline __host__ __device__ int gs_smem_floats(int D, int Mp) {
+  return gp_smem_floats(0, 0, 0) + (D + 2) * Mp + (D + 3) * GS_PW;
+}
+
+static __device__ __forceinline__ GsShared gs_carve(const GpShared& s, int D,
+                                                    int Mp) {
+  GsShared g;
+  g.zs = s.xs;  // first float after the tiles and scalars
+  g.zm = g.zs + D * Mp;
+  g.vec = g.zm + Mp;
+  g.xs = g.vec + Mp;
+  g.mx = g.xs + D * GS_PW;
+  g.yv = g.mx + GS_PW;
+  g.beta = g.yv + GS_PW;
+  return g;
+}
+
+static __device__ void gs_stage_inducing(const GsShared& g, const float* zt,
+                                         const float* pe, int D, int Mp) {
+  for (int i = threadIdx.x; i < Mp; i += GP_THREADS) {
+    for (int d = 0; d < D; ++d) g.zs[d * Mp + i] = zt[d * Mp + i] / pe[d];
+    g.zm[i] = zt[7 * Mp + i];
+  }
+}
+
+static __device__ void gs_stage_panel(const GsShared& g, const float* xt,
+                                      const float* yt, const float* pe, int D,
+                                      int Np, int n0) {
+  for (int i = threadIdx.x; i < GS_PW; i += GP_THREADS) {
+    for (int d = 0; d < D; ++d)
+      g.xs[d * GS_PW + i] = xt[d * Np + n0 + i] / pe[d];
+    g.mx[i] = xt[7 * Np + n0 + i];
+    g.yv[i] = yt[n0 + i];
+  }
+  __syncthreads();
+}
+
+// acc (this thread's 4x4 micro-tile of a GS_T x GS_T output) +=
+//   sum_{p < K} opA(r, p) * opB(p, c)
+// opA(r, p) = TA ? A[p*lda + r] : A[r*lda + p]
+// opB(p, c) = TB ? B[c*ldb + p] : B[p*ldb + c]
+// K is a multiple of GS_KC. Both operands stream through `stage` (2 x GS_KC
+// x GS_TS floats of shared memory, 16-byte aligned) in chunks of GS_KC.
+template <bool TA, bool TB>
+static __device__ void gs_mma64(float acc[4][4], const float* A, int lda,
+                                const float* B, int ldb, int K,
+                                float* stage) {
+  float* As = stage;                  // As[p][r]
+  float* Bs = stage + GS_KC * GS_TS;  // Bs[p][c]
+  const int tid = threadIdx.x;
+  const int r0 = (tid >> 4) * 4, c0 = (tid & 15) * 4;
+  for (int k0 = 0; k0 < K; k0 += GS_KC) {
+    for (int e = tid; e < GS_T * GS_KC; e += GP_THREADS) {
+      if (TA) {
+        const int p = e / GS_T, r = e % GS_T;
+        As[p * GS_TS + r] = A[(size_t)(k0 + p) * lda + r];
+      } else {
+        const int r = e / GS_KC, p = e % GS_KC;
+        As[p * GS_TS + r] = A[(size_t)r * lda + k0 + p];
+      }
+      if (TB) {
+        const int c = e / GS_KC, p = e % GS_KC;
+        Bs[p * GS_TS + c] = B[(size_t)c * ldb + k0 + p];
+      } else {
+        const int p = e / GS_T, c = e % GS_T;
+        Bs[p * GS_TS + c] = B[(size_t)(k0 + p) * ldb + c];
+      }
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int q = 0; q < GS_KC; ++q) {
+      const float4 a4 = *reinterpret_cast<const float4*>(As + q * GS_TS + r0);
+      const float4 b4 = *reinterpret_cast<const float4*>(Bs + q * GS_TS + c0);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
+    }
+    __syncthreads();
+  }
+}
+
+// pan [Mp][GS_PW] <- Kuf of the staged panel, then A~ = W_u^T Kuf in place.
+template <int KID>
+static __device__ void gs_build_at_panel(const GpShared& s, const GsShared& g,
+                                         const float* Wu, float* pan, int Mp,
+                                         int D, float sf2) {
+  const int tid = threadIdx.x;
+  const int r0 = (tid >> 4) * 4, c0 = (tid & 15) * 4;
+  const float scale = gp_scale<KID>();
+  for (int i = tid; i < Mp * GS_PW; i += GP_THREADS) {
+    const int m = i / GS_PW, n = i % GS_PW;
+    float r2 = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float dd = g.zs[d * Mp + m] - g.xs[d * GS_PW + n];
+      r2 += dd * dd;
+    }
+    pan[i] = sf2 * gp_phi<KID>(r2 * scale) * (g.zm[m] * g.mx[n]);
+  }
+  __syncthreads();
+  for (int iT = Mp - GS_T; iT >= 0; iT -= GS_T)
+    for (int cs = 0; cs < GS_PW; cs += GS_T) {
+      // A~[iT + r][cs + c] = sum_{q < iT + T} W_u[q][iT + r] Kuf[q][cs + c];
+      // the rows it overwrites are read by no later tile row
+      float acc[4][4] = {};
+      gs_mma64<true, false>(acc, Wu + iT, Mp, pan + cs, GS_PW, iT + GS_T,
+                            s.As);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          pan[(size_t)(iT + r0 + a) * GS_PW + cs + c0 + b] = acc[a][b];
+    }
+  __syncthreads();
+}
+
+template <int KID>
+__global__ void __launch_bounds__(GP_THREADS)
+gp_sgpr_stream1_kernel(const float* xt, const float* yt, const float* zt,
+                       const float* p, const float* Wu, float* partB,
+                       float* partA, float* partT, float* ws, int Np, int Mp,
+                       int D) {
+  extern __shared__ __align__(16) float sm[];
+  const int e = blockIdx.x, sp = blockIdx.y, S = gridDim.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = (tid >> 4) * 4, c0 = (tid & 15) * 4;
+  const size_t slot = (size_t)e * S + sp;
+  const float* pe = p + (size_t)e * 8;
+  const float sf2 = pe[5], inv_s2 = 1.f / pe[6];
+  const float* Wue = Wu + (size_t)e * Mp * Mp;
+  float* Bp = partB + slot * Mp * Mp;
+  float* pan = ws + slot * Mp * GS_PW;
+  GpShared s = gp_carve(sm, 0, 0);
+  GsShared g = gs_carve(s, D, Mp);
+
+  gs_stage_inducing(g, zt + (size_t)e * 8 * Mp, pe, D, Mp);
+  for (int i = tid; i < Mp; i += GP_THREADS) g.vec[i] = 0.f;
+  for (int i = tid; i < Mp * Mp; i += GP_THREADS) Bp[i] = 0.f;
+  __syncthreads();
+
+  float tr = 0.f;
+  for (int n0 = sp * GS_PW; n0 < Np; n0 += S * GS_PW) {
+    gs_stage_panel(g, xt + (size_t)e * 8 * Np, yt + (size_t)e * Np, pe, D, Np,
+                   n0);
+    gs_build_at_panel<KID>(s, g, Wue, pan, Mp, D, sf2);
+
+    // a~ += A~ ybar and |A~|_F^2, one warp per row
+    for (int m = warp; m < Mp; m += GP_THREADS / 32) {
+      float a = 0.f, q = 0.f;
+      for (int n = lane; n < GS_PW; n += 32) {
+        const float v = pan[(size_t)m * GS_PW + n];
+        a += v * g.yv[n];
+        q += v * v;
+      }
+      a = gp_warp_sum(a);
+      q = gp_warp_sum(q);
+      if (lane == 0) {
+        g.vec[m] += a;
+        tr += q;
+      }
+    }
+
+    // B += A~ A~^T / s2 over the upper tile pairs (the reduce kernel
+    // mirrors them); each thread owns the same entries in every panel
+    for (int iT = 0; iT < Mp; iT += GS_T)
+      for (int jT = iT; jT < Mp; jT += GS_T) {
+        float acc[4][4] = {};
+        gs_mma64<false, true>(acc, pan + (size_t)iT * GS_PW, GS_PW,
+                              pan + (size_t)jT * GS_PW, GS_PW, GS_PW, s.As);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            Bp[(size_t)(iT + r0 + a) * Mp + jT + c0 + b] += acc[a][b] * inv_s2;
+      }
+    __syncthreads();
+  }
+
+  tr = gp_block_sum(tr, s.red);
+  for (int i = tid; i < Mp; i += GP_THREADS) partA[slot * Mp + i] = g.vec[i];
+  if (tid == 0) partT[slot] = tr;
+}
+
+// Bsum, at, trA2 <- the S partials of each expert, added in order; the tiles
+// below the diagonal of Bsum are the mirror of those above it. Grid (B, Mp):
+// one block per row of Bsum.
+__global__ void __launch_bounds__(GP_THREADS)
+gp_sgpr_stream1_reduce(const float* partB, const float* partA,
+                       const float* partT, float* Bsum, float* at,
+                       float* trA2, int Mp, int S) {
+  const int e = blockIdx.x, r = blockIdx.y;
+  const size_t base = (size_t)e * S;
+  for (int c = threadIdx.x; c < Mp; c += GP_THREADS) {
+    const bool upper = r / GS_T <= c / GS_T;
+    const size_t o = upper ? (size_t)r * Mp + c : (size_t)c * Mp + r;
+    float t = 0.f;
+    for (int sp = 0; sp < S; ++sp) t += partB[(base + sp) * Mp * Mp + o];
+    Bsum[((size_t)e * Mp + r) * Mp + c] = t;
+    if (r == 0) {
+      float a = 0.f;
+      for (int sp = 0; sp < S; ++sp) a += partA[(base + sp) * Mp + c];
+      at[(size_t)e * Mp + c] = a;
+    }
+  }
+  if (r == 0 && threadIdx.x == 0) {
+    float t = 0.f;
+    for (int sp = 0; sp < S; ++sp) t += partT[base + sp];
+    trA2[e] = t;
+  }
+}
+
+template <int KID>
+__global__ void __launch_bounds__(GP_THREADS)
+gp_sgpr_stream2_kernel(const float* xt, const float* yt, const float* zt,
+                       const float* p, const float* Wu, const float* Pm,
+                       const float* dd, float* partG, float* ws, int Np,
+                       int Mp, int D) {
+  extern __shared__ __align__(16) float sm[];
+  const int e = blockIdx.x, sp = blockIdx.y, S = gridDim.y;
+  const int tid = threadIdx.x;
+  const int r0 = (tid >> 4) * 4, c0 = (tid & 15) * 4;
+  const size_t slot = (size_t)e * S + sp;
+  const float* pe = p + (size_t)e * 8;
+  const float sf2 = pe[5], inv_s2 = 1.f / pe[6];
+  const float* Wue = Wu + (size_t)e * Mp * Mp;
+  const float* Pe = Pm + (size_t)e * Mp * Mp;
+  float* pan = ws + slot * 2 * Mp * GS_PW;  // Kuf, then A~
+  float* vpan = pan + (size_t)Mp * GS_PW;   // v
+  GpShared s = gp_carve(sm, 0, 0);
+  GsShared g = gs_carve(s, D, Mp);
+  const float scale = gp_scale<KID>();
+
+  gs_stage_inducing(g, zt + (size_t)e * 8 * Mp, pe, D, Mp);
+  for (int i = tid; i < Mp; i += GP_THREADS) g.vec[i] = dd[(size_t)e * Mp + i];
+  __syncthreads();
+
+  float gls[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  float gsf2 = 0.f;
+  for (int n0 = sp * GS_PW; n0 < Np; n0 += S * GS_PW) {
+    gs_stage_panel(g, xt + (size_t)e * 8 * Np, yt + (size_t)e * Np, pe, D, Np,
+                   n0);
+    gs_build_at_panel<KID>(s, g, Wue, pan, Mp, D, sf2);
+
+    // beta = ybar / s2 - A~^T dd / s2^2
+    for (int n = tid; n < GS_PW; n += GP_THREADS) {
+      float a = 0.f;
+      for (int m = 0; m < Mp; ++m) a += g.vec[m] * pan[(size_t)m * GS_PW + n];
+      g.beta[n] = g.yv[n] * inv_s2 - a * inv_s2 * inv_s2;
+    }
+    __syncthreads();
+
+    // v = P A~ + dd beta^T
+    for (int iT = 0; iT < Mp; iT += GS_T)
+      for (int cs = 0; cs < GS_PW; cs += GS_T) {
+        float acc[4][4] = {};
+        gs_mma64<false, false>(acc, Pe + (size_t)iT * Mp, Mp, pan + cs, GS_PW,
+                               Mp, s.As);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            vpan[(size_t)(iT + r0 + a) * GS_PW + cs + c0 + b] =
+                acc[a][b] + g.vec[iT + r0 + a] * g.beta[cs + c0 + b];
+      }
+    __syncthreads();
+
+    // Kbar_uf = -W_u v / s2 tile by tile (row i of W_u reads v rows >= i),
+    // reduced on the fly against the kernel derivatives
+    for (int iT = 0; iT < Mp; iT += GS_T)
+      for (int cs = 0; cs < GS_PW; cs += GS_T) {
+        float acc[4][4] = {};
+        gs_mma64<false, false>(acc, Wue + (size_t)iT * Mp + iT, Mp,
+                               vpan + (size_t)iT * GS_PW + cs, GS_PW, Mp - iT,
+                               s.As);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int m = iT + r0 + a;
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int n = cs + c0 + b;
+            const float kbar = -acc[a][b] * inv_s2;
+            float q2[5];
+            float r2 = 0.f;
+            for (int d = 0; d < 5; ++d) {
+              if (d < D) {
+                const float df = g.zs[d * Mp + m] - g.xs[d * GS_PW + n];
+                q2[d] = df * df * scale;
+                r2 += q2[d];
+              } else {
+                q2[d] = 0.f;
+              }
+            }
+            const float mm = g.zm[m] * g.mx[n];
+            gsf2 += kbar * (sf2 * gp_phi<KID>(r2) * mm);
+            const float qf = kbar * (sf2 * gp_phi_grad<KID>(r2) * mm);
+#pragma unroll
+            for (int d = 0; d < 5; ++d) gls[d] += qf * q2[d];
+          }
+        }
+      }
+    __syncthreads();
+  }
+
+  gsf2 = gp_block_sum(gsf2, s.red);
+  for (int d = 0; d < 5; ++d) gls[d] = gp_block_sum(gls[d], s.red);
+  if (tid == 0) {
+    float* o = partG + slot * 8;
+    o[0] = 0.f;
+    for (int d = 0; d < 5; ++d) o[1 + d] = d < D ? gls[d] : 0.f;
+    o[6] = gsf2;
+    o[7] = 0.f;
+  }
+}
+
+// gout [B][8] <- the S partials of each expert, added in order.
+__global__ void gp_sgpr_stream2_reduce(const float* partG, float* gout, int B,
+                                       int S) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * 8) return;
+  const int e = i / 8, l = i % 8;
+  float t = 0.f;
+  for (int sp = 0; sp < S; ++sp) t += partG[((size_t)e * S + sp) * 8 + l];
+  gout[i] = t;
+}
+
+#define GS_DISPATCH(KERNEL, ...)                                             \
+  switch (kernel_id) {                                                       \
+    case GP_MATERN12:                                                        \
+      code = gp_launch(KERNEL<GP_MATERN12>, grid, smem, st, __VA_ARGS__);    \
+      break;                                                                 \
+    case GP_MATERN32:                                                        \
+      code = gp_launch(KERNEL<GP_MATERN32>, grid, smem, st, __VA_ARGS__);    \
+      break;                                                                 \
+    case GP_MATERN52:                                                        \
+      code = gp_launch(KERNEL<GP_MATERN52>, grid, smem, st, __VA_ARGS__);    \
+      break;                                                                 \
+    case GP_RBF:                                                             \
+      code = gp_launch(KERNEL<GP_RBF>, grid, smem, st, __VA_ARGS__);         \
+      break;                                                                 \
+    case GP_EXPONENTIAL:                                                     \
+      code = gp_launch(KERNEL<GP_EXPONENTIAL>, grid, smem, st, __VA_ARGS__); \
+      break;                                                                 \
+    default:                                                                 \
+      code = (int)cudaErrorInvalidValue;                                     \
+  }
+
+// partB [B][S][Mp][Mp], partA [B][S][Mp], partT [B][S] and
+// ws [B][S][Mp][GS_PW] are scratch from the wrapper.
+extern "C" int gp_sgpr_stream1_launch(const float* xt, const float* yt,
+                                      const float* zt, const float* p,
+                                      const float* Wu, float* Bsum, float* at,
+                                      float* trA2, float* partB, float* partA,
+                                      float* partT, float* ws, int B, int Np,
+                                      int Mp, int D, int S, int kernel_id,
+                                      void* stream) {
+  const size_t smem = sizeof(float) * gs_smem_floats(D, Mp);
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid(B, S);
+  int code;
+  GS_DISPATCH(gp_sgpr_stream1_kernel, xt, yt, zt, p, Wu, partB, partA, partT,
+              ws, Np, Mp, D)
+  if (code != 0) return code;
+  gp_sgpr_stream1_reduce<<<dim3(B, Mp), GP_THREADS, 0, st>>>(
+      partB, partA, partT, Bsum, at, trA2, Mp, S);
+  return (int)cudaGetLastError();
+}
+
+// partG [B][S][8] and ws [B][S][2][Mp][GS_PW] are scratch from the wrapper.
+extern "C" int gp_sgpr_stream2_launch(const float* xt, const float* yt,
+                                      const float* zt, const float* p,
+                                      const float* Wu, const float* Pm,
+                                      const float* dd, float* gout,
+                                      float* partG, float* ws, int B, int Np,
+                                      int Mp, int D, int S, int kernel_id,
+                                      void* stream) {
+  const size_t smem = sizeof(float) * gs_smem_floats(D, Mp);
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid(B, S);
+  int code;
+  GS_DISPATCH(gp_sgpr_stream2_kernel, xt, yt, zt, p, Wu, Pm, dd, partG, ws,
+              Np, Mp, D)
+  if (code != 0) return code;
+  gp_sgpr_stream2_reduce<<<(B * 8 + 255) / 256, 256, 0, st>>>(partG, gout, B,
+                                                             S);
+  return (int)cudaGetLastError();
+}

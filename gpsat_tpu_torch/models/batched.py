@@ -1,14 +1,18 @@
-"""Batched exact-GPR engine: fit + predict for a whole padded bucket of local
-experts (torch port of BatchedGPR in gpsat_tpu/models/batched.py).
+"""Batched exact-GPR and SGPR engines: fit + predict for a whole padded
+bucket of local experts (torch port of BatchedGPR and BatchedSGPR in
+gpsat_tpu/models/batched.py).
 
 A bucket of B experts with identical padded shapes is optimised by one
 batched L-BFGS and predicted in one masked batched posterior evaluation. On a
 CUDA device, shapes inside the kernels' gates go through the fused CUDA
-kernels (ops/cuda_gpr.py); everything else runs the ops/gpr torch path, as the
-JAX engine runs XLA outside its Pallas gates.
+kernels (ops/cuda_gpr.py, ops/cuda_sgpr.py); everything else runs the
+ops/gpr and ops/sgpr torch paths, as the JAX engines run XLA outside their
+Pallas gates.
 
 Inputs may be numpy arrays or tensors; results come back as numpy arrays.
 """
+
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -17,14 +21,16 @@ from gpsat_tpu_torch import default_dtype, resolve_device
 from gpsat_tpu_torch.models.exact_gpr import (make_gpr_objective,
                                               make_gpr_vg_fun,
                                               move_within_bounds)
-from gpsat_tpu_torch.ops import cuda_gpr
+from gpsat_tpu_torch.ops import cuda_gpr, cuda_sgpr
 from gpsat_tpu_torch.ops import gpr as gpr_math
+from gpsat_tpu_torch.ops import sgpr as sgpr_math
 from gpsat_tpu_torch.ops.lbfgs import (batched_lbfgs, batched_lbfgs_pool,
                                        linesearch_policy)
 from gpsat_tpu_torch.ops.packing import ParamSpec, pack, unpack
 from gpsat_tpu_torch.ops.transforms import Sigmoid, Softplus
 
-__all__ = ["BatchedGPR"]
+__all__ = ["BatchedGPR", "BatchedSGPR", "make_sgpr_objective",
+           "make_sgpr_vg_fun"]
 
 
 def _min_valid_size(mask, n_padded):
@@ -273,6 +279,14 @@ class BatchedGPR:
             compute_fval=bool(compute_fval),
             ls_n=_min_valid_size(mask, X.shape[1]))
 
+    def _snapshot_state(self):
+        """Engine side-state captured before a collapse-restart re-run
+        (subclasses carrying per-expert state override)."""
+        return None
+
+    def _merge_state(self, state1, use2):
+        """Keep run-1 side-state for experts where run 2 was not adopted."""
+
     @staticmethod
     def _signal_variance(y_np, mask_np):
         cnt = np.maximum(mask_np.sum(axis=1), 1)
@@ -322,12 +336,14 @@ class BatchedGPR:
                 params.get("kernel_variance", np.ones(B)), fval, y_var,
                 mask_np)
             if collapsed.any():
+                state1 = self._snapshot_state()
                 alt = self._initial_params_batch(B, param_overrides,
                                                  y_var=y_var, scale=3.0)
                 p2, f2, c2, i2, pr2 = self._execute(
                     alt, Xj, yj, mask_np, Xs_in, optimise, do_predict)
                 f2 = _np(f2)
                 use2 = collapsed & (f2 < fval) & np.isfinite(f2)
+                self._merge_state(state1, use2)
                 if use2.any():
                     def pick(a, b):
                         return np.where(use2.reshape((B,) + (1,) * (a.ndim - 1)),
@@ -358,7 +374,7 @@ class BatchedGPR:
 
         def cat(key):
             return np.concatenate([o[key] for o in outs], axis=0)
-        return {
+        out = {
             "params": {k: np.concatenate([o["params"][k] for o in outs])
                        for k in outs[0]["params"]},
             "objective": cat("objective"),
@@ -367,9 +383,31 @@ class BatchedGPR:
             "preds": {k: np.concatenate([o["preds"][k] for o in outs])
                       for k in outs[0]["preds"]},
         }
+        for k in set(outs[0]) - set(out):   # engine extras (inducing_mask, …)
+            out[k] = cat(k)
+        return out
+
+    # -- pool hooks (engines that support pooled L-BFGS override) -----------
+
+    def _pool_supported(self, optimise):
+        """Whether this engine can run the L-BFGS pool."""
+        return type(self) is BatchedGPR and optimise and bool(self.free_names)
+
+    def _pool_extra_args(self, X, mask, param_overrides):
+        """Engine-specific per-expert numpy arrays inserted between mask and
+        the bijectors in the objective args (e.g. SGPR inducing points)."""
+        return ()
+
+    def _pool_select_chunk(self, ids):
+        """Point per-expert engine state at rows `ids` before _call_program
+        in the prediction-fill loop (default: stateless)."""
+
+    def _pool_finalize(self, out):
+        """Engine-specific output decoration (e.g. objective sign flip)."""
+        return out
 
     def _pool_objective(self, N=None):
-        """(objective, vg_fun) over (u, X, y, mask, bij, fixed)."""
+        """(objective, vg_fun) over (u, X, y, mask, *extra, bij, fixed)."""
         objective, _ = make_gpr_objective(self.kernel, self.free_names,
                                           self.d)
         vg_fun = make_gpr_vg_fun(self.kernel, self.free_names, self.d) \
@@ -389,7 +427,7 @@ class BatchedGPR:
             return min(1024, bucket_level(E))
         return B_pool
 
-    def _pool_optimize(self, init, X, y, mask, slots):
+    def _pool_optimize(self, init, X, y, mask, slots, extra=()):
         """Pooled L-BFGS over E same-shape experts (see
         ops/lbfgs.batched_lbfgs_pool). Returns numpy (u [E,P], f, conv,
         iters)."""
@@ -400,10 +438,12 @@ class BatchedGPR:
         objective, vg_fun = self._pool_objective(N=X.shape[1])
         mls, rec = linesearch_policy(self.dtype, self.linesearch_kind,
                                      n=_min_valid_size(mask, X.shape[1]))
+        extra = tuple(self._tensor(a, torch.bool if a.dtype == bool else None)
+                      for a in map(_np, extra))
         res = batched_lbfgs_pool(
             objective, u0,
-            (self._tensor(X), self._tensor(y), self._tensor(mask, torch.bool),
-             self._batched_bijectors(E), fixed),
+            (self._tensor(X), self._tensor(y), self._tensor(mask, torch.bool))
+            + extra + (self._batched_bijectors(E), fixed),
             slots=slots, max_iter=self.max_iter, gtol=self.gtol,
             ftol=self.ftol, vg_fun=vg_fun, max_linesearch_steps=mls,
             recovery_steps=rec)
@@ -421,17 +461,18 @@ class BatchedGPR:
                          predict=True, param_overrides=None, slots=None):
         """Sweep E same-padded-shape experts.
 
-        Runs the L-BFGS *pool* (ops/lbfgs.batched_lbfgs_pool): a `slots`-wide
-        batch whose slots refill from the expert queue the moment they
-        converge, so the batch never waits for its slowest expert. With
-        `optimise=False`, no free parameters, or E <= slots, falls back to
-        chunked fit_predict.
+        Engines whose optimiser is L-BFGS (exact GPR; SGPR with fixed
+        inducing points) run the *pool* (ops/lbfgs.batched_lbfgs_pool): a
+        `slots`-wide batch whose slots refill from the expert queue the
+        moment they converge, so the batch never waits for its slowest
+        expert. With `optimise=False`, no free parameters, E <= slots or an
+        engine without pool support, falls back to chunked fit_predict.
         """
         from gpsat_tpu_torch.parallel.scheduler import auto_batch_size
         E, N = X.shape[0], X.shape[1]
         P = 0 if Xs is None else Xs.shape[1]
         B = int(slots or min(E, auto_batch_size(N, P, device=self.device)))
-        if not (optimise and self.free_names) or E <= B:
+        if not self._pool_supported(optimise) or E <= B:
             return self._chunked_fit_predict(X, y, mask, Xs, optimise,
                                              predict, param_overrides,
                                              min(B, E))
@@ -439,9 +480,11 @@ class BatchedGPR:
         mask_np = _np(mask).astype(bool)
         y_np = _np(y)
         y_var = self._signal_variance(y_np, mask_np)
+        extra = self._pool_extra_args(X, mask_np, param_overrides)
         init = self._initial_params_batch(E, param_overrides, y_var=y_var,
                                           clamp=True)
-        u, fval, conv, iters = self._pool_optimize(init, X, y, mask_np, B)
+        u, fval, conv, iters = self._pool_optimize(init, X, y, mask_np, B,
+                                                   extra=extra)
 
         # collapse-restart (same policy as fit_predict) on the failed subset
         params = self._constrained_np(u)
@@ -453,7 +496,8 @@ class BatchedGPR:
                                              scale=3.0)
             alt_rows = {k: np.asarray(v)[ids] for k, v in alt.items()}
             u2, f2, c2, i2 = self._pool_optimize(
-                alt_rows, _np(X)[ids], y_np[ids], mask_np[ids], B)
+                alt_rows, _np(X)[ids], y_np[ids], mask_np[ids], B,
+                extra=tuple(_np(a)[ids] for a in extra))
             take = np.isfinite(f2) & (f2 < fval[ids])
             if take.any():
                 rows = ids[take]
@@ -480,6 +524,7 @@ class BatchedGPR:
             fixed_chunk = {k: self._tensor(np.asarray(init[k])[sl])
                            for k in self.HYPER_NAMES
                            if k not in self.free_names}
+            self._pool_select_chunk(np.arange(s, sl.stop))
             p_chunk, _, _, _, pr = self._call_program(
                 u_t[sl], X_t[sl], y_t[sl], mask_np[sl], Xs_in,
                 self._batched_bijectors(n), fixed_chunk, False, do_predict,
@@ -492,5 +537,294 @@ class BatchedGPR:
                     preds_out[k] = np.empty((E,) + tuple(v.shape[1:]))
                 preds_out[k][sl] = _np(v)
 
-        return {"params": out_params, "objective": fval, "converged": conv,
-                "iterations": iters, "preds": preds_out}
+        return self._pool_finalize(
+            {"params": out_params, "objective": fval, "converged": conv,
+             "iterations": iters, "preds": preds_out})
+
+
+# ---------------------------------------------------------------------------
+# SGPR (Titsias) batched engine
+# ---------------------------------------------------------------------------
+
+def _sgpr_spec(names, d, M=0):
+    """Layout of the L-BFGS vector: the free hyperparameters, then (when
+    trained) the inducing locations [M, d]."""
+    shapes = {"lengthscales": (d,), "kernel_variance": (),
+              "likelihood_variance": (), "inducing_points": (M, d)}
+    return ParamSpec([(n, shapes[n]) for n in names])
+
+
+@lru_cache(maxsize=None)
+def make_sgpr_objective(kernel, free_names, d, jitter):
+    """Batched collapsed negative-ELBO objective over flat unconstrained
+    hyper vectors, fixed inducing points:
+    objective(u [B,P], X, y, mask, Z, zmask, bijectors, fixed) -> [B].
+    lru_cache gives the pooled path one stable callable."""
+    spec = _sgpr_spec(free_names, d)
+
+    def objective(u, X, y, mask, Z, zmask, bijectors, fixed):
+        params = _constrained(u, spec, free_names, bijectors, fixed)
+        return sgpr_math.neg_elbo(params, X, y, mask, Z, zmask,
+                                  kernel=kernel, jitter=jitter)
+
+    return objective
+
+
+@lru_cache(maxsize=None)
+def make_sgpr_vg_fun(kernel, free_names, d, jitter, route="hybrid"):
+    """Batch-level value_and_grad of the collapsed negative ELBO through the
+    fused path (ops/cuda_sgpr.sgpr_vg_batched on `route`), which returns
+    raw-parameter gradients. The chain rule through the constraint bijectors
+    is torch.autograd.grad of the elementwise u -> params map (cf.
+    models/exact_gpr.make_gpr_vg_fun)."""
+    spec = _sgpr_spec(free_names, d)
+
+    def vg_fun(u, X, y, mask, Z, zmask, bijectors, fixed):
+        with torch.enable_grad():
+            ur = u.detach().requires_grad_(True)
+            params = _constrained(ur, spec, free_names, bijectors, fixed)
+        val, gparams = cuda_sgpr.sgpr_vg_batched(
+            {n: v.detach() for n, v in params.items()}, X, y,
+            mask.to(X.dtype), Z, zmask.to(X.dtype), kernel, jitter,
+            route=route)
+        outs = [params[n] for n in free_names]
+        cots = [gparams[n].to(params[n].dtype).reshape(params[n].shape)
+                for n in free_names]
+        (gu,) = torch.autograd.grad(outs, ur, cots)
+        return val.to(u.dtype), gu
+
+    return vg_fun
+
+
+def _sgpr_fit_predict(u0, X, y, mask, Z, zmask, Xs, bijectors, fixed, *,
+                      kernel, free_names, d, optimise, do_predict, max_iter,
+                      gtol, ftol, jitter, train_z=False, compute_fval=True,
+                      route="hybrid"):
+    """Batched SGPR: L-BFGS on the collapsed negative ELBO + posterior.
+
+    train_z packs the inducing locations [M, d] into the L-BFGS vector
+    (identity transform; padded rows have zero gradient and never move) —
+    the reference's train_inducing_points=True
+    (GPSat/models/gpflow_models.py:864-877)."""
+    B, M = Z.shape[0], Z.shape[1]
+    opt_names = tuple(free_names) + (("inducing_points",) if train_z else ())
+    spec = _sgpr_spec(opt_names, d, M)
+    fused = _kernel_path(X.device) and cuda_sgpr.sgpr_vg_supported(
+        kernel, d, X.shape[1], M)
+
+    def objective(u, X, y, mask, Z, zmask, bijectors, fixed):
+        params = _constrained(u, spec, free_names, bijectors, fixed)
+        Zu = unpack(u, spec)["inducing_points"] if train_z else Z
+        return sgpr_math.neg_elbo(params, X, y, mask, Zu, zmask,
+                                  kernel=kernel, jitter=jitter)
+
+    args = (X, y, mask, Z, zmask, bijectors, fixed)
+    if optimise and opt_names:
+        # fixed-Z runs evaluate every L-BFGS trial through the fused SGPR
+        # value+gradient path when supported (trainable Z packs Z into u,
+        # which the fused path does not cover)
+        vg_fun = make_sgpr_vg_fun(kernel, free_names, d, jitter, route) \
+            if (fused and not train_z) else None
+        mls, rec = linesearch_policy(X.dtype, "sgpr")
+        res = batched_lbfgs(objective, u0, args, max_iter, gtol, ftol, 10,
+                            mls, rec, vg_fun=vg_fun)
+        u, fval, conv, iters = res.x, res.fun, res.converged, res.iterations
+    else:
+        u = u0
+        if compute_fval:
+            with torch.no_grad():
+                fval = objective(u0, *args)
+        else:
+            fval = torch.zeros(B, dtype=X.dtype, device=X.device)
+        conv = torch.zeros(B, dtype=torch.bool, device=X.device)
+        iters = torch.zeros(B, dtype=torch.int32, device=X.device)
+
+    with torch.no_grad():
+        params = _constrained(u, spec, free_names, bijectors, fixed)
+        if train_z:
+            Z = unpack(u, spec)["inducing_points"]
+            Z = torch.where(zmask[:, :, None], Z, torch.zeros_like(Z))
+        if not do_predict:
+            preds = {}
+        elif fused:
+            # hybrid batched posterior (cholinv kernel + torch matmuls, with
+            # the escalating-jitter recovery for near-singular Kuu)
+            preds = cuda_sgpr.sgpr_predict_batched(
+                params, X, y, mask.to(X.dtype), Z, zmask.to(X.dtype), Xs,
+                kernel, jitter)
+            preds = {k: v.to(X.dtype) for k, v in preds.items()}
+        else:
+            preds = sgpr_math.predict(params, X, y, mask, Z, zmask, Xs,
+                                      kernel=kernel, jitter=jitter)
+    return params, fval, conv, iters, preds, Z
+
+
+class BatchedSGPR(BatchedGPR):
+    """Batched Titsias SGPR engine (reference model: GPflowSGPRModel,
+    GPSat/models/gpflow_models.py:666; the production model of the IS2 runs).
+
+    Inducing points are a seeded random subset of each expert's (scaled)
+    inputs, fixed during optimisation (the reference default,
+    gpflow_models.py:864 train_inducing_points=False). The optimiser
+    minimises the *negative* ELBO; the reported objective is the ELBO.
+
+    `route` picks how the fused value_and_grad runs on the card: "hybrid"
+    (torch matmuls around the cholinv kernel, the default) or "stream" (the
+    two N-streamed kernels); see ops/cuda_sgpr.py.
+    """
+
+    model_name = "SGPRModel"
+    linesearch_kind = "sgpr"
+
+    def __init__(self, coords_dim, num_inducing_points=500, inducing_seed=42,
+                 jitter=None, route="hybrid", **kwargs):
+        optim_kwargs = dict(kwargs.pop("optim_kwargs", None) or {})
+        if not hasattr(self, "train_inducing_points"):
+            self.train_inducing_points = bool(optim_kwargs.pop(
+                "train_inducing_points", False))
+        else:
+            optim_kwargs.pop("train_inducing_points", None)
+        if route not in cuda_sgpr.ROUTES:
+            raise ValueError(f"route must be one of {cuda_sgpr.ROUTES}")
+        jitter = sgpr_math.DEFAULT_JITTER if jitter is None else jitter
+        super().__init__(coords_dim, jitter=jitter, optim_kwargs=optim_kwargs,
+                         **kwargs)
+        self.num_inducing = int(num_inducing_points)
+        self.inducing_seed = int(inducing_seed)
+        self.jitter = float(jitter)
+        self.route = route
+        self._Z = None
+        self._zmask = None
+
+    def param_shape(self, name):
+        if name == "inducing_points":
+            return (self.num_inducing, self.d)
+        return super().param_shape(name)
+
+    def _build_inducing(self, X, mask):
+        """Seeded random-subset inducing points per expert, padded + masked
+        (numpy, the same draws as the JAX engine)."""
+        X = _np(X)
+        mask = _np(mask)
+        B, N, d = X.shape
+        M = min(self.num_inducing, N)
+        Z = np.zeros((B, M, d))
+        zmask = np.zeros((B, M), dtype=bool)
+        rng = np.random.default_rng(self.inducing_seed)
+        for b in range(B):
+            valid = np.where(mask[b])[0]
+            if len(valid) == 0:
+                continue
+            if len(valid) <= M:
+                sel = valid
+            else:
+                sel = valid[rng.permutation(len(valid))[:M]]
+            Z[b, :len(sel)] = X[b, sel]
+            zmask[b, :len(sel)] = True
+        return Z, zmask
+
+    def fit_predict(self, X, y, mask, Xs=None, optimise=True, predict=True,
+                    param_overrides=None):
+        self._Z, self._zmask = self._build_inducing(X, mask)
+        self._apply_inducing_override(param_overrides)
+        out = super().fit_predict(X, y, mask, Xs=Xs, optimise=optimise,
+                                  predict=predict,
+                                  param_overrides=param_overrides)
+        # report the ELBO (positive) and expose the inducing points
+        out["objective"] = -out["objective"]
+        Z_out = getattr(self, "_Z_final", self._Z)
+        out["params"]["inducing_points"] = Z_out * (
+            self._zmask[:, :, None])  # zero padded rows for storage
+        out["inducing_mask"] = self._zmask
+        return out
+
+    def _apply_inducing_override(self, param_overrides):
+        """Adopt loaded inducing locations row-wise: a loaded row replaces the
+        seeded one when it is finite and the slot is valid (zmask). NaN rows
+        (expert missing from the table, or stored M < configured M) keep the
+        seeded selection."""
+        if not (param_overrides and
+                param_overrides.get("inducing_points") is not None):
+            return
+        ov = np.asarray(param_overrides["inducing_points"], dtype=float)
+        ov = ov.reshape(len(self._Z), -1, self.d)
+        k = min(self._Z.shape[1], ov.shape[1])
+        adopt = (~np.isnan(ov[:, :k]).any(axis=2)) & self._zmask[:, :k]
+        self._Z[:, :k][adopt] = ov[:, :k][adopt]
+
+    def _snapshot_state(self):
+        return {"Z": getattr(self, "_Z_final", None)}
+
+    def _merge_state(self, state1, use2):
+        if state1 and state1.get("Z") is not None:
+            keep1 = ~use2
+            self._Z_final[keep1] = state1["Z"][keep1]
+
+    def _call_program(self, u0, X, y, mask, Xs_in, bij_b, fixed, optimise,
+                      do_predict, compute_fval=True):
+        train_z = bool(self.train_inducing_points) and bool(optimise)
+        Z = self._tensor(self._Z)
+        if train_z:
+            u0 = torch.cat([u0, Z.reshape(u0.shape[0], -1)], dim=1)
+        params, fval, conv, iters, preds, Z = _sgpr_fit_predict(
+            u0, X, y, self._tensor(mask, torch.bool), Z,
+            self._tensor(self._zmask, torch.bool), Xs_in, bij_b, fixed,
+            kernel=self.kernel, free_names=self.free_names, d=self.d,
+            optimise=bool(optimise), do_predict=bool(do_predict),
+            max_iter=self.max_iter, gtol=self.gtol, ftol=self.ftol,
+            jitter=self.jitter, train_z=train_z,
+            compute_fval=bool(compute_fval), route=self.route)
+        self._Z_final = _np(Z).copy()
+        return params, fval, conv, iters, preds
+
+    # -- pooled execution hooks ----------------------------------------------
+
+    def _pool_supported(self, optimise):
+        """Pooled L-BFGS with *fixed* inducing points (the reference
+        default); trainable-Z runs fall back to chunked one-shot batches."""
+        return (type(self) is BatchedSGPR and optimise
+                and bool(self.free_names) and not self.train_inducing_points)
+
+    def _pool_objective(self, N=None):
+        vg_fun = make_sgpr_vg_fun(self.kernel, self.free_names, self.d,
+                                  self.jitter, self.route) \
+            if _kernel_path(self.device) and cuda_sgpr.sgpr_vg_supported(
+                self.kernel, self.d, N, self.num_inducing) else None
+        return make_sgpr_objective(self.kernel, self.free_names, self.d,
+                                   self.jitter), vg_fun
+
+    def _pool_extra_args(self, X, mask, param_overrides):
+        self._Z, self._zmask = self._build_inducing(X, mask)
+        self._apply_inducing_override(param_overrides)
+        self._Z_all, self._zmask_all = self._Z, self._zmask
+        return (self._Z, self._zmask)
+
+    def _pool_select_chunk(self, ids):
+        self._Z = self._Z_all[ids]
+        self._zmask = self._zmask_all[ids]
+
+    def _pool_finalize(self, out):
+        self._Z, self._zmask = self._Z_all, self._zmask_all
+        out["objective"] = -out["objective"]   # stored objective = ELBO
+        out["params"]["inducing_points"] = \
+            self._Z_all * self._zmask_all[:, :, None]
+        out["inducing_mask"] = self._zmask_all
+        return out
+
+    def _fill_chunk_width(self, E, X, Xs, B_pool, do_predict):
+        """Hybrid SGPR prediction has no [B, N, N] temporaries: its dominant
+        buffers are [B, M_pad, N] (Kuf/At and their r2 builds), so the fill
+        runs far wider chunks than the pool (fewer cholinv launches). Width =
+        canonical bucket of E capped by a budget of 2**27 elements per live
+        buffer, floored to a multiple of 16, never below the pool width."""
+        if not (do_predict and type(self) is BatchedSGPR
+                and _kernel_path(self.device)
+                and cuda_sgpr.sgpr_vg_supported(self.kernel, self.d,
+                                                X.shape[1],
+                                                self.num_inducing)):
+            return B_pool
+        from gpsat_tpu_torch.parallel.scheduler import bucket_level
+        M_pad = -(-self.num_inducing // 128) * 128
+        cap = max(16, 2**27 // max(M_pad * X.shape[1], 1))
+        B = min(bucket_level(E), cap - cap % 16)
+        return max(B, B_pool)

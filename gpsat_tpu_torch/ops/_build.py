@@ -36,6 +36,14 @@ _SIGNATURES = {
     # xt, yt, p, xs, mean, var, ws, B, Np, Pp, D, kernel_id, stream
     "gp_predict_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P],
+    # A, W, ld, ws, B, M, stream
+    "gp_cholinv_launch": [_P, _P, _P, _P, _I, _I, _P],
+    # xt, yt, zt, p, Wu, Bsum, at, trA2, partB, partA, partT, ws,
+    # B, Np, Mp, D, S, kernel_id, stream
+    "gp_sgpr_stream1_launch": [_P] * 12 + [_I] * 6 + [_P],
+    # xt, yt, zt, p, Wu, P, dd, gout, partG, ws, B, Np, Mp, D, S, kernel_id,
+    # stream
+    "gp_sgpr_stream2_launch": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 

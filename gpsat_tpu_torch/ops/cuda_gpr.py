@@ -34,7 +34,8 @@ from gpsat_tpu_torch.ops import _build
 
 __all__ = ["cuda_vg_supported", "nlml_vg_batched", "nlml_vg_batched_plain",
            "cuda_predict_supported", "posterior_predict_batched",
-           "posterior_predict_batched_plain", "reset_launch_counts"]
+           "posterior_predict_batched_plain", "launch_counts",
+           "reset_launch_counts"]
 
 _MAX_D = 5
 _TILE = 32          # the kernels' tile edge (GP_T in csrc/gp_common.cuh)
@@ -350,7 +351,23 @@ def posterior_predict_batched_plain(params, X, y, maskf, Xs, kernel, jitter):
     return _predict_unpack(mean, var, params, Xs.shape[1])
 
 
+def _counted_wrappers():
+    """{name: wrapper} of every kernel wrapper that counts its launches (the
+    SGPR modules import this one, so they are imported here on demand)."""
+    from gpsat_tpu_torch.ops import cuda_cholinv, cuda_sgpr
+    return {"nlml_vg": nlml_vg_batched,
+            "posterior_predict": posterior_predict_batched,
+            "cholinv": cuda_cholinv.cholinv_batched,
+            "sgpr_stream1": cuda_sgpr.sgpr_stream1,
+            "sgpr_stream2": cuda_sgpr.sgpr_stream2}
+
+
+def launch_counts():
+    """{kernel name: launches since the last reset} of every wrapper."""
+    return {name: fn.launches for name, fn in _counted_wrappers().items()}
+
+
 def reset_launch_counts():
     """Set every wrapper's launch count to 0."""
-    nlml_vg_batched.launches = 0
-    posterior_predict_batched.launches = 0
+    for fn in _counted_wrappers().values():
+        fn.launches = 0

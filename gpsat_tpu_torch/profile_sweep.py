@@ -1,13 +1,18 @@
-"""Where the time of the exact-GPR sweep goes on a CUDA device.
+"""Where the time of a sweep goes on a CUDA device.
 
-    python -m gpsat_tpu_torch.profile_sweep [--experts 512] [--out FILE]
+    python -m gpsat_tpu_torch.profile_sweep [gpr|sgpr] [--experts E]
+                                            [--out FILE]
 
-Runs BatchedGPR.fit_predict_many on the bench `gpr` workload (N=400, P=400,
-D=3, Matern32, f32) three times: a cold run (first use of every kernel), a
-warm run timed on the host clock, and a warm run under torch.profiler. Prints
-one JSON object: wall times, pool iterations and slots, launches of each fused
-kernel, the device time of each CUDA kernel by name, and the device's busy
-share of the profiled wall time. Needs a CUDA device; numbers are this run's.
+`gpr` (the default) runs BatchedGPR.fit_predict_many on the bench `gpr`
+workload (E=512, N=400, P=400, D=3, Matern32, f32); `sgpr` runs
+BatchedSGPR.fit_predict_many on the bench `sgpr` workload (E=128, N=2000,
+P=400, D=3, M=500, 48 slots), once per route ("hybrid", "stream"). Each sweep
+runs three times: a cold run (first use of every kernel), a warm run timed on
+the host clock, and a warm run under torch.profiler. Prints one JSON object
+per sweep: wall times, pool iterations and slots, launches of each fused
+kernel, peak device memory, the device time of each CUDA kernel by name, and
+the device's busy share of the profiled wall time. Needs a CUDA device;
+numbers are this run's.
 """
 
 import argparse
@@ -19,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from gpsat_tpu_torch.models.batched import BatchedGPR
+from gpsat_tpu_torch.models.batched import BatchedGPR, BatchedSGPR
 from gpsat_tpu_torch.ops import cuda_gpr
 from gpsat_tpu_torch.parallel.scheduler import auto_batch_size
 
@@ -36,14 +41,32 @@ def workload(E, N, P, D=3, seed=0):
     return X, z - z.mean(axis=1, keepdims=True), np.ones((E, N), bool), Xs
 
 
-def bench_gpr_engine(D=3, **kw):
-    """BatchedGPR with the bench `gpr` configuration (bench.py:501-506)."""
-    return BatchedGPR(
+def _bench_common(D):
+    """The engine configuration shared by bench.py's modes (bench.py:501-506)."""
+    return dict(
         coords_dim=D, kernel="Matern32",
         constraints={"lengthscales": {"low": [0.01] * D, "high": [50.0] * D},
                      "likelihood_variance": {"low": 1e-5, "high": 1.0}},
         optim_kwargs={"max_iter": 250, "gtol": 1e-5, "ftol": 1e-9},
-        jitter=1e-6, **kw)
+        jitter=1e-6)
+
+
+def bench_gpr_engine(D=3, **kw):
+    """BatchedGPR with the bench `gpr` configuration."""
+    return BatchedGPR(**_bench_common(D), **kw)
+
+
+def bench_sgpr_engine(D=3, M=500, **kw):
+    """BatchedSGPR with the bench `sgpr` configuration (bench.py:507-508)."""
+    return BatchedSGPR(num_inducing_points=M, **_bench_common(D), **kw)
+
+
+def sgpr_slots(E, N, M):
+    """Pool width of the bench `sgpr` mode (bench.py:536-538): a budget of
+    3 * 2**24 elements for the dominant [B, M, N] buffers, rounded down to a
+    multiple of 16 (48 at N=2000, M=500)."""
+    B = min(E, max(1, (3 * 2**24) // (M * N)))
+    return B - B % 16 if B >= 16 else B
 
 
 def _device_times(prof):
@@ -56,32 +79,23 @@ def _device_times(prof):
     return out
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--experts", type=int, default=512)
-    ap.add_argument("--out", default=None,
-                    help="also write the JSON object to this file")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_sweep: no CUDA device", file=sys.stderr)
-        return 1
-
-    E, N, P, D = args.experts, 400, 400, 3
+def profile(engine, E, N, P, D, slots):
+    """Cold, warm and profiled sweeps of `engine` on the bench workload."""
     X, y, mask, Xs = workload(E, N, P, D)
-    engine = bench_gpr_engine(D)
 
     def sweep():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = engine.fit_predict_many(X, y, mask, Xs=Xs)
+        out = engine.fit_predict_many(X, y, mask, Xs=Xs, slots=slots)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
     _, cold = sweep()
     cuda_gpr.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     out, warm = sweep()
-    launches = {"nlml_vg": cuda_gpr.nlml_vg_batched.launches,
-                "posterior_predict": cuda_gpr.posterior_predict_batched.launches}
+    launches = {k: v for k, v in cuda_gpr.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -93,13 +107,15 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     pool_iters = engine._last_pool_iterations
-    result = {
-        "card": smi, "experts": E, "N": N, "P": P, "D": D,
-        "slots": min(E, auto_batch_size(N, P, device=engine.device)),
-        "pool_iters": pool_iters,
+    return {
+        "card": smi, "model": engine.model_name,
+        "route": getattr(engine, "route", None),
+        "experts": E, "N": N, "P": P, "D": D,
+        "slots": slots, "pool_iters": pool_iters,
         "converged": float(np.mean(out["converged"])),
         "wall_cold_s": cold, "wall_warm_s": warm, "wall_profiled_s": profiled,
         "experts_per_s_warm": E / warm, "launches": launches,
+        "peak_memory_bytes": peak,
         "device_busy_s": busy_us * 1e-6 if busy_us else "not measured",
         "device_busy_share": busy_us * 1e-6 / profiled if busy_us
         else "not measured",
@@ -109,7 +125,31 @@ def main():
         "top_kernels_ms": {k[:80]: {"ms": us * 1e-3, "calls": c}
                            for k, (us, c) in top},
     }
-    text = json.dumps(result)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("mode", nargs="?", default="gpr", choices=("gpr", "sgpr"))
+    ap.add_argument("--experts", type=int, default=None)
+    ap.add_argument("--out", default=None,
+                    help="also write the JSON objects to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_sweep: no CUDA device", file=sys.stderr)
+        return 1
+
+    results = []
+    if args.mode == "gpr":
+        E, N, P, D = args.experts or 512, 400, 400, 3
+        engine = bench_gpr_engine(D)
+        slots = min(E, auto_batch_size(N, P, device=engine.device))
+        results.append(profile(engine, E, N, P, D, slots))
+    else:
+        E, N, P, D, M = args.experts or 128, 2000, 400, 3, 500
+        for route in ("hybrid", "stream"):
+            results.append(profile(bench_sgpr_engine(D, M, route=route), E, N,
+                                   P, D, sgpr_slots(E, N, M)))
+    text = "\n".join(json.dumps(r) for r in results)
     print(text)
     if args.out:
         with open(args.out, "w") as f:

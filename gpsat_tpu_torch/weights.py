@@ -11,7 +11,8 @@ import torch
 from gpsat_tpu_torch import default_dtype, resolve_device
 from gpsat_tpu_torch.ops.lbfgs import Carry
 
-__all__ = ["params_from_jax", "unconstrained_from_jax", "carry_from_jax"]
+__all__ = ["params_from_jax", "inducing_from_jax", "unconstrained_from_jax",
+           "carry_from_jax"]
 
 
 def _tensor(a, dtype, device):
@@ -23,6 +24,14 @@ def _tensor(a, dtype, device):
 def params_from_jax(params_np, dtype=None, device=None):
     """{name: [E, ...] array} hyperparameters -> {name: tensor}."""
     return {k: _tensor(v, dtype, device) for k, v in params_np.items()}
+
+
+def inducing_from_jax(Z_np, zmask_np, dtype=None, device=None):
+    """Per-expert inducing points [E, M, d] and their validity mask [E, M]
+    (BatchedSGPR's `params["inducing_points"]` and `inducing_mask`) ->
+    (Z tensor, bool mask tensor), so both engines work from the same Z."""
+    return (_tensor(Z_np, dtype, device),
+            _tensor(np.asarray(zmask_np).astype(bool), torch.bool, device))
 
 
 def unconstrained_from_jax(u_np, dtype=None, device=None):

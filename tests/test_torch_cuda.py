@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card, held against their plain PyTorch
-versions, and the engine's CUDA path. Every test here needs an NVIDIA GPU and
+versions, and the engines' CUDA paths (exact GPR and SGPR). Every test here needs an NVIDIA GPU and
 skips without one. The file imports neither jax nor gpsat_tpu, so it runs on
 a machine that has only torch:
 
@@ -148,3 +148,196 @@ def test_engine_on_the_card_matches_the_host_engine(dev):
                                rtol=1e-3, atol=1e-2)
     np.testing.assert_allclose(got["preds"]["f*"], ref["preds"]["f*"],
                                atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# SGPR: cholinv, the two stream kernels, the engine
+# ---------------------------------------------------------------------------
+
+def make_spd(dev, M, m_valid, seed=0):
+    """Masked, well-conditioned SPD matrices (identity on the padded block)."""
+    rng = np.random.default_rng(seed)
+    A = np.zeros((len(m_valid), M, M))
+    for b, mv in enumerate(m_valid):
+        G = rng.standard_normal((mv, mv))
+        A[b, :mv, :mv] = G @ G.T / mv + np.eye(mv) * 0.5
+        A[b, range(mv, M), range(mv, M)] = 1.0
+    return torch.as_tensor(A, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("M", [128, 512, 1024])
+def test_cholinv_matches_plain(dev, M):
+    """W rtol 2e-3 atol 2e-3, ld rtol 1e-4 atol 1e-4; exact zeros below the
+    diagonal; the input is left as it was."""
+    from gpsat_tpu_torch.ops import cuda_cholinv
+    A = make_spd(dev, M, (M, M - 56, M // 2, M - 6, 1))
+    keep = A.clone()
+    before = cuda_cholinv.cholinv_batched.launches
+    W, ld = cuda_cholinv.cholinv_batched(A)
+    assert cuda_cholinv.cholinv_batched.launches == before + 1
+    Wp, ldp = cuda_cholinv.cholinv_batched_plain(A)
+    np.testing.assert_allclose(W.cpu().numpy(), Wp.cpu().numpy(), rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_allclose(ld.cpu().numpy(), ldp.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4)
+    assert (W.tril(-1) == 0).all()
+    assert torch.equal(A, keep)
+
+
+def test_cholinv_non_pd_and_gate(dev):
+    from gpsat_tpu_torch.ops import cuda_cholinv
+    A = make_spd(dev, 256, (256, 200, 128))
+    A[1, 70, 70] = -1.0
+    W, ld = cuda_cholinv.cholinv_batched(A)
+    assert not torch.isfinite(ld[1])
+    Wp, ldp = cuda_cholinv.cholinv_batched_plain(A[[0, 2]])
+    np.testing.assert_allclose(W[[0, 2]].cpu().numpy(), Wp.cpu().numpy(),
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(ld[[0, 2]].cpu().numpy(), ldp.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="gate"):
+        cuda_cholinv.cholinv_batched(A[:, :200, :200].contiguous())
+
+
+def make_sgpr_case(dev, B=4, N=300, M=100, D=3, seed=0):
+    """The recipe of tests/test_pallas_sgpr.py on the card: ragged data
+    masks, prefix inducing masks, one expert with few valid points."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-3, 3, (B, N, D))
+    y = np.sin(X[..., 0]) + 0.1 * rng.standard_normal((B, N))
+    mask = np.ones((B, N), bool)
+    for b in range(B):
+        mask[b, N - rng.integers(0, N // 3):] = False
+    mask[-1, min(N, 40):] = False
+    Z = np.zeros((B, M, D))
+    zmask = np.zeros((B, M), bool)
+    for b in range(B):
+        valid = np.flatnonzero(mask[b])
+        mv = min(M, len(valid)) - (2 if b == 1 else 0)
+        Z[b, :mv] = X[b, rng.permutation(valid)[:mv]]
+        zmask[b, :mv] = True
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+    params = {"lengthscales": t(rng.uniform(0.7, 2.5, (B, D))),
+              "kernel_variance": t(rng.uniform(0.5, 2.0, B)),
+              "likelihood_variance": t(rng.uniform(0.05, 0.3, B))}
+    return params, t(X), t(y), t(mask), t(Z), t(zmask)
+
+
+@pytest.mark.parametrize("kernel,N,M,D", [
+    ("Matern32", 300, 100, 3), ("Matern12", 230, 100, 3),
+    ("Matern52", 230, 100, 3), ("RBF", 230, 100, 3),
+    ("Exponential", 230, 100, 3), ("Matern32", 70, 30, 1),
+    ("Matern32", 1100, 260, 2), ("Matern32", 150, 128, 5),
+    ("Matern32", 2000, 1000, 2)])
+def test_stream_kernels_match_plain(dev, kernel, N, M, D):
+    """stream1 and stream2 against their plain versions on the same packed
+    inputs (ragged N, M over one, three and eight 128-tiles, D=1 and 5):
+    rtol 2e-3, atol 2e-3 of the largest entry; a second launch repeats the
+    first bit for bit."""
+    from gpsat_tpu_torch.ops import cuda_cholinv, cuda_sgpr
+    params, X, y, m, Z, zm = make_sgpr_case(dev, N=N, M=M, D=D, seed=N)
+    Xp, Zp, mf, zmf, ls, _, sf2, s2, ybar = cuda_sgpr._prepare(
+        params, X, y, m, Z, zm)
+    jitter = 1e-6 if M < 1000 else 1e-3
+    Kuu = cuda_sgpr._kuu(Zp / ls[:, None, :], zmf, sf2, kernel, jitter)[0]
+    W_u, ld = cuda_cholinv.cholinv_batched(Kuu)
+    assert torch.isfinite(ld).all()
+    xt, yt, zt, p = cuda_sgpr._pack_stream(Xp, mf, ybar, Zp, zmf, ls, sf2, s2)
+
+    def close(a, b, name):
+        b = b.cpu().numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), b, rtol=2e-3,
+                                   atol=2e-3 * np.abs(b).max(), err_msg=name)
+    before = (cuda_sgpr.sgpr_stream1.launches, cuda_sgpr.sgpr_stream2.launches)
+    got = cuda_sgpr.sgpr_stream1(xt, yt, zt, p, W_u, kernel, D)
+    want = cuda_sgpr._stream1_plain(xt, yt, zt, p, W_u, kernel, D)
+    for a, b, name in zip(got, want, ("Bsum", "at", "trA2")):
+        close(a, b, name)
+    assert torch.equal(got[0], got[0].mT)
+    Mp = zt.shape[2]
+    W_B, _ = cuda_cholinv.cholinv_batched(
+        want[0] + torch.eye(Mp, dtype=torch.float32, device=dev))
+    c = (want[1][:, None, :] @ W_B)[:, 0, :]
+    dd = (W_B @ c[:, :, None])[:, :, 0].contiguous()
+    Pm = (W_B @ (W_B.mT @ want[0])).contiguous()
+    g = cuda_sgpr.sgpr_stream2(xt, yt, zt, p, W_u, Pm, dd, kernel, D)
+    close(g, cuda_sgpr._stream2_plain(xt, yt, zt, p, W_u, Pm, dd, kernel, D),
+          "gout")
+    assert torch.equal(g, cuda_sgpr.sgpr_stream2(xt, yt, zt, p, W_u, Pm, dd,
+                                                 kernel, D))
+    assert (cuda_sgpr.sgpr_stream1.launches,
+            cuda_sgpr.sgpr_stream2.launches) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.parametrize("route", ["hybrid", "stream"])
+def test_sgpr_vg_and_predict_match_f64(dev, route):
+    """Both routes and the prediction on the card against autograd through
+    ops/sgpr.neg_elbo and ops/sgpr.predict in f64 on the host: value rtol
+    2e-4 atol 1e-3, gradients rtol 5e-3 atol 5e-3, predictions rtol 2e-3
+    atol 2e-4 (the tolerances of tests/test_pallas_sgpr.py)."""
+    from gpsat_tpu_torch.ops import cuda_sgpr
+    from gpsat_tpu_torch.ops import sgpr as sgpr_math
+    params, X, y, m, Z, zm = make_sgpr_case(dev, B=5, N=230, M=100, seed=5)
+    val, g = cuda_sgpr.sgpr_vg_batched(params, X, y, m, Z, zm, "Matern32",
+                                       1e-6, route=route)
+    host = [a.double().cpu() for a in (X, y, m.bool(), Z, zm.bool())]
+    pr = {k: v.double().cpu().requires_grad_(True) for k, v in params.items()}
+    f = sgpr_math.neg_elbo(pr, *host, kernel="Matern32", jitter=1e-6)
+    gs = torch.autograd.grad(f.sum(), list(pr.values()))
+    np.testing.assert_allclose(val.cpu().numpy(), f.detach().numpy(),
+                               rtol=2e-4, atol=1e-3)
+    for k, want in zip(pr, gs):
+        np.testing.assert_allclose(g[k].cpu().numpy(), want.numpy(),
+                                   rtol=5e-3, atol=5e-3, err_msg=k)
+    Xs = torch.as_tensor(np.random.default_rng(1).uniform(-2, 2, (5, 30, 3)),
+                         dtype=torch.float32, device=dev)
+    got = cuda_sgpr.sgpr_predict_batched(params, X, y, m, Z, zm, Xs,
+                                         "Matern32", 1e-6)
+    ref = sgpr_math.predict({k: v.detach() for k, v in pr.items()}, *host,
+                            Xs.double().cpu(), kernel="Matern32", jitter=1e-6)
+    for k in ("f*", "f*_var", "y_var"):
+        np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(),
+                                   rtol=2e-3, atol=2e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("route", ["hybrid", "stream"])
+def test_sgpr_engine_on_the_card_matches_the_host_engine(dev, route):
+    """BatchedSGPR with no device runs on the card in f32, through the
+    route's kernels, and lands on the f64 host engine's optima (ELBO rtol
+    1e-3 atol 0.1, predictions atol 2e-2)."""
+    from gpsat_tpu_torch.models.batched import BatchedSGPR
+    rng = np.random.default_rng(1)
+    E, N, P, D = 12, 120, 16, 3
+    X = rng.uniform(-4, 4, (E, N, D))
+    X[..., 2] = 0.0
+    y = 0.4 * np.sin(X[..., 0] * 0.8) + 0.3 * np.cos(X[..., 1] * 0.6) \
+        + 0.05 * rng.standard_normal((E, N))
+    y = y - y.mean(axis=1, keepdims=True)
+    Xs = rng.uniform(-4, 4, (E, P, D))
+    Xs[..., 2] = 0.0
+    mask = np.ones((E, N), bool)
+    mask[0, 100:] = False
+    kw = dict(coords_dim=D, kernel="Matern32", num_inducing_points=32,
+              constraints={"lengthscales": {"low": [0.01] * D,
+                                            "high": [5.0] * D},
+                           "likelihood_variance": {"low": 1e-5, "high": 1.0}},
+              optim_kwargs={"max_iter": 250, "gtol": 1e-5, "ftol": 1e-9})
+    eng = BatchedSGPR(route=route, **kw)
+    assert eng.device.type == "cuda" and eng.dtype == torch.float32
+    cuda_gpr.reset_launch_counts()
+    got = eng.fit_predict_many(X, y, mask, Xs=Xs, slots=4)
+    counts = cuda_gpr.launch_counts()
+    trials = eng._last_pool_iterations + 1
+    assert counts["cholinv"] >= 2 * trials + 2
+    assert counts["sgpr_stream1"] == counts["sgpr_stream2"] == \
+        (trials if route == "stream" else 0)
+    ref = BatchedSGPR(device="cpu", **kw).fit_predict_many(X, y, mask, Xs=Xs,
+                                                           slots=4)
+    assert got["converged"].all()
+    np.testing.assert_array_equal(got["inducing_mask"], ref["inducing_mask"])
+    np.testing.assert_allclose(got["objective"], ref["objective"], rtol=1e-3,
+                               atol=0.1)
+    np.testing.assert_allclose(got["preds"]["f*"], ref["preds"]["f*"],
+                               atol=2e-2)

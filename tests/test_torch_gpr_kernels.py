@@ -148,7 +148,9 @@ def test_c_entry_points_match_their_ctypes_signatures():
     arguments; the sources compile only on the card."""
     cu, cuh = _build._sources()
     names = sorted(p.rsplit("/", 1)[-1] for p in cu + cuh)
-    assert names == ["gp_common.cuh", "gp_predict.cu", "gp_vg.cu"]
+    assert names == ["gp_cholinv.cu", "gp_common.cuh", "gp_predict.cu",
+                     "gp_sgpr_stream.cu", "gp_vg.cu"]
+    assert len(_build._SIGNATURES) == 5
     text = "".join(open(p).read() for p in cu)
     for name, argtypes in _build._SIGNATURES.items():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
