@@ -13,7 +13,9 @@ Layout
                                  ``ops/cuda_cholinv.py``, ``ops/cuda_sgpr.py``;
                                  sources in ``csrc/``).
 - ``gpsat_tpu_torch.models``   : ``BatchedGPR`` and ``BatchedSGPR``, the
-                                 exact-GPR and SGPR sweep engines.
+                                 exact-GPR and SGPR sweep engines, and the
+                                 per-expert models ``GPRModel`` /
+                                 ``SGPRModel`` (``models.get_model``).
 - ``gpsat_tpu_torch.parallel`` : expert bucketing and batch sizing.
 - ``gpsat_tpu_torch.weights``  : carry parameters and optimiser states over
                                  from the JAX package as numpy arrays.

@@ -1,5 +1,6 @@
-// Device code shared by the GP kernels (gp_vg.cu, gp_predict.cu,
-// gp_cholinv.cu, gp_sgpr_stream.cu).
+// Device code shared by the GP kernels (gp_vg.cu, gp_predict.cu, gp_value.cu,
+// gp_cholinv.cu and, through gp_sgpr_common.cuh, gp_sgpr_stream.cu and
+// gp_sgpr_vg.cu).
 //
 // Replaces the shared pieces of gpsat_tpu/ops/pallas_gpr.py: the correlation
 // functions _phi / _phi_grad (:64, :80) and the blocked factor + inverse
@@ -244,19 +245,20 @@ struct GpMatrixSource {
   }
 };
 
-// Blocked left-looking Cholesky A = U^T U with the diagonal tiles inverted
-// on the way (tile row k of U is W_kk^T (A_k. - sum_{p<k} U_pk^T U_p.)),
-// then the off-diagonal tiles of W = U^{-1} by the block recurrence
-// W_ij = -W_ii sum_{i<q<=j} U_iq W_qj. `src(r, c)` gives the entry of A (only
-// upper tiles are asked for). U and W are Np x Np row-major views with
-// leading dimensions ldu and ldw; only their upper tiles are written
+// Blocked left-looking Cholesky A = U^T U, the factor half of
+// gp_factor_invert_from: tile row k of U is W_kk^T (A_k. - sum_{p<k} U_pk^T
+// U_p.), with the diagonal tile factored and inverted by one warp. `src(r, c)`
+// gives the entry of A (only upper tiles are asked for). U is an Np x Np
+// row-major view with leading dimension ldu; only its upper tiles are written
 // (diagonal tiles with explicit zeros below the diagonal) and only those are
-// read. Returns sum log diag U in every thread.
-template <typename Source>
-static __device__ float gp_factor_invert_from(const Source& src,
-                                              const GpShared& s, float* U,
-                                              int ldu, float* W, int ldw,
-                                              int Np) {
+// read. `on_diag(k)` is called by every thread once diagonal tile k is done,
+// with U_kk in s.St, W_kk = U_kk^{-1} in s.Wt and tile rows < k of U in
+// device memory; the block synchronises after it. sum log diag U ends in
+// s.scal[0], which the caller zeroes before.
+template <typename Source, typename DiagHook>
+static __device__ void gp_factor_from(const Source& src, const GpShared& s,
+                                      float* U, int ldu, int Np,
+                                      const DiagHook& on_diag) {
   const int tid = threadIdx.x;
   const int r0 = (tid >> 4) * 2, c0 = (tid & 15) * 2;
   const int nb = Np / GP_T;
@@ -283,11 +285,10 @@ static __device__ float gp_factor_invert_from(const Source& src,
 #pragma unroll
         for (int a = 0; a < 2; ++a)
 #pragma unroll
-          for (int b = 0; b < 2; ++b) {
-            const int r = kT + r0 + a, c = kT + c0 + b;
-            U[(size_t)r * ldu + c] = s.St[(r0 + a) * GP_TS + c0 + b];
-            W[(size_t)r * ldw + c] = s.Wt[(r0 + a) * GP_TS + c0 + b];
-          }
+          for (int b = 0; b < 2; ++b)
+            U[(size_t)(kT + r0 + a) * ldu + kT + c0 + b] =
+                s.St[(r0 + a) * GP_TS + c0 + b];
+        on_diag(k);
       } else {
         // U_kj = W_kk^T C (W_kk upper: rows q <= r contribute)
         float o[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
@@ -308,7 +309,33 @@ static __device__ float gp_factor_invert_from(const Source& src,
       __syncthreads();
     }
   }
+}
 
+// gp_factor_from's hook of the factor + inverse: keep the diagonal tile of
+// W = U^{-1}.
+struct GpStoreDiagW {
+  const GpShared& s;
+  float* W;
+  int ldw;
+  __device__ __forceinline__ void operator()(int k) const {
+    const int r0 = (threadIdx.x >> 4) * 2, c0 = (threadIdx.x & 15) * 2;
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+        W[(size_t)(k * GP_T + r0 + a) * ldw + k * GP_T + c0 + b] =
+            s.Wt[(r0 + a) * GP_TS + c0 + b];
+  }
+};
+
+// The off-diagonal tiles of W = U^{-1} from U and W's diagonal tiles, by the
+// block recurrence W_ij = -W_ii sum_{i<q<=j} U_iq W_qj. Only upper tiles of
+// W (leading dimension ldw) are written and read.
+static __device__ void gp_invert_offdiag(const GpShared& s, const float* U,
+                                         int ldu, float* W, int ldw, int Np) {
+  const int tid = threadIdx.x;
+  const int r0 = (tid >> 4) * 2, c0 = (tid & 15) * 2;
+  const int nb = Np / GP_T;
   for (int j = 1; j < nb; ++j) {
     const int jT = j * GP_T;
     for (int i = j - 1; i >= 0; --i) {
@@ -344,6 +371,18 @@ static __device__ float gp_factor_invert_from(const Source& src,
       __syncthreads();
     }
   }
+}
+
+// Factor (gp_factor_from) and full inverse W = U^{-1} (gp_invert_offdiag) of
+// the matrix `src` gives. U and W are Np x Np row-major views with leading
+// dimensions ldu and ldw. Returns sum log diag U in every thread.
+template <typename Source>
+static __device__ float gp_factor_invert_from(const Source& src,
+                                              const GpShared& s, float* U,
+                                              int ldu, float* W, int ldw,
+                                              int Np) {
+  gp_factor_from(src, s, U, ldu, Np, GpStoreDiagW{s, W, ldw});
+  gp_invert_offdiag(s, U, ldu, W, ldw, Np);
   return s.scal[0];
 }
 
@@ -387,3 +426,26 @@ static int gp_launch(KernelT kernel, dim3 blocks, size_t smem,
   kernel<<<blocks, GP_THREADS, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
+
+// code = gp_launch(KERNEL<kernel_id>, grid, smem, st, ...): the caller
+// declares code, grid, smem, st and kernel_id.
+#define GP_DISPATCH(KERNEL, ...)                                             \
+  switch (kernel_id) {                                                       \
+    case GP_MATERN12:                                                        \
+      code = gp_launch(KERNEL<GP_MATERN12>, grid, smem, st, __VA_ARGS__);    \
+      break;                                                                 \
+    case GP_MATERN32:                                                        \
+      code = gp_launch(KERNEL<GP_MATERN32>, grid, smem, st, __VA_ARGS__);    \
+      break;                                                                 \
+    case GP_MATERN52:                                                        \
+      code = gp_launch(KERNEL<GP_MATERN52>, grid, smem, st, __VA_ARGS__);    \
+      break;                                                                 \
+    case GP_RBF:                                                             \
+      code = gp_launch(KERNEL<GP_RBF>, grid, smem, st, __VA_ARGS__);         \
+      break;                                                                 \
+    case GP_EXPONENTIAL:                                                     \
+      code = gp_launch(KERNEL<GP_EXPONENTIAL>, grid, smem, st, __VA_ARGS__); \
+      break;                                                                 \
+    default:                                                                 \
+      code = (int)cudaErrorInvalidValue;                                     \
+  }

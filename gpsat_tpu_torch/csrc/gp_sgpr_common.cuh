@@ -1,0 +1,152 @@
+// Device code shared by the SGPR kernels (gp_sgpr_stream.cu, gp_sgpr_vg.cu):
+// the 64x64 tile product gs_mma64, the staging of inducing points and data
+// panels, and the routine that builds one A~ = W_u^T Kuf panel.
+//
+// Replaces the shared pieces of gpsat_tpu/ops/pallas_sgpr.py:
+// _build_kuf_at_tiles (:600) and the dot_general tiles of its kernels.
+#pragma once
+
+#include "gp_common.cuh"
+
+#define GS_PW 128  // panel width (data columns per pass); Np is a multiple
+#define GS_T 64    // output tile edge of gs_mma64; divides GS_PW and Mp
+#define GS_KC 32   // depth of one staged chunk
+#define GS_TS 68   // padded row stride of a staged chunk (16-byte multiple)
+
+// Where gs_mma64's stage (GS_STAGE_FLOATS) is the front of a block's dynamic
+// shared memory (the stream kernels), it overlays the tiles As, Bs, St, Wt,
+// Ct of GpShared, which those kernels use for nothing else, and must end
+// before GpShared::red.
+#define GS_STAGE_FLOATS (2 * GS_KC * GS_TS)
+static_assert(GS_STAGE_FLOATS <= 5 * GP_TILE_ELEMS,
+              "gs_mma64's stage overruns the five tiles of GpShared");
+static_assert(GS_TS % 4 == 0 && GS_TS >= GS_T && GS_PW % GS_T == 0,
+              "staged rows are read as float4 and hold one tile row");
+
+struct GsShared {
+  float* zs;    // [D][Mp] inducing coordinates / lengthscales
+  float* zm;    // [Mp] inducing mask
+  float* vec;   // [Mp] stream1: a~ accumulator; stream2: dd
+  float* xs;    // [D][GS_PW] panel coordinates / lengthscales
+  float* mx;    // [GS_PW] panel data mask
+  float* yv;    // [GS_PW] panel ybar
+  float* beta;  // [GS_PW] stream2: beta of the panel
+};
+
+static inline __host__ __device__ int gs_smem_floats(int D, int Mp) {
+  return gp_smem_floats(0, 0, 0) + (D + 2) * Mp + (D + 3) * GS_PW;
+}
+
+static __device__ __forceinline__ GsShared gs_carve(const GpShared& s, int D,
+                                                    int Mp) {
+  GsShared g;
+  g.zs = s.xs;  // first float after the tiles and scalars
+  g.zm = g.zs + D * Mp;
+  g.vec = g.zm + Mp;
+  g.xs = g.vec + Mp;
+  g.mx = g.xs + D * GS_PW;
+  g.yv = g.mx + GS_PW;
+  g.beta = g.yv + GS_PW;
+  return g;
+}
+
+static __device__ void gs_stage_inducing(const GsShared& g, const float* zt,
+                                         const float* pe, int D, int Mp) {
+  for (int i = threadIdx.x; i < Mp; i += GP_THREADS) {
+    for (int d = 0; d < D; ++d) g.zs[d * Mp + i] = zt[d * Mp + i] / pe[d];
+    g.zm[i] = zt[7 * Mp + i];
+  }
+}
+
+static __device__ void gs_stage_panel(const GsShared& g, const float* xt,
+                                      const float* yt, const float* pe, int D,
+                                      int Np, int n0) {
+  for (int i = threadIdx.x; i < GS_PW; i += GP_THREADS) {
+    for (int d = 0; d < D; ++d)
+      g.xs[d * GS_PW + i] = xt[d * Np + n0 + i] / pe[d];
+    g.mx[i] = xt[7 * Np + n0 + i];
+    g.yv[i] = yt[n0 + i];
+  }
+  __syncthreads();
+}
+
+// acc (this thread's 4x4 micro-tile of a GS_T x GS_T output) +=
+//   sum_{p < K} opA(r, p) * opB(p, c)
+// opA(r, p) = TA ? A[p*lda + r] : A[r*lda + p]
+// opB(p, c) = TB ? B[c*ldb + p] : B[p*ldb + c]
+// K is a multiple of GS_KC. Both operands stream through `stage` (2 x GS_KC
+// x GS_TS floats of shared memory, 16-byte aligned) in chunks of GS_KC.
+template <bool TA, bool TB>
+static __device__ void gs_mma64(float acc[4][4], const float* A, int lda,
+                                const float* B, int ldb, int K,
+                                float* stage) {
+  float* As = stage;                  // As[p][r]
+  float* Bs = stage + GS_KC * GS_TS;  // Bs[p][c]
+  const int tid = threadIdx.x;
+  const int r0 = (tid >> 4) * 4, c0 = (tid & 15) * 4;
+  for (int k0 = 0; k0 < K; k0 += GS_KC) {
+    for (int e = tid; e < GS_T * GS_KC; e += GP_THREADS) {
+      if (TA) {
+        const int p = e / GS_T, r = e % GS_T;
+        As[p * GS_TS + r] = A[(size_t)(k0 + p) * lda + r];
+      } else {
+        const int r = e / GS_KC, p = e % GS_KC;
+        As[p * GS_TS + r] = A[(size_t)r * lda + k0 + p];
+      }
+      if (TB) {
+        const int c = e / GS_KC, p = e % GS_KC;
+        Bs[p * GS_TS + c] = B[(size_t)c * ldb + k0 + p];
+      } else {
+        const int p = e / GS_T, c = e % GS_T;
+        Bs[p * GS_TS + c] = B[(size_t)(k0 + p) * ldb + c];
+      }
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int q = 0; q < GS_KC; ++q) {
+      const float4 a4 = *reinterpret_cast<const float4*>(As + q * GS_TS + r0);
+      const float4 b4 = *reinterpret_cast<const float4*>(Bs + q * GS_TS + c0);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
+    }
+    __syncthreads();
+  }
+}
+
+// pan [Mp][GS_PW] <- Kuf of the staged panel, then A~ = W_u^T Kuf in place.
+template <int KID>
+static __device__ void gs_build_at_panel(const GpShared& s, const GsShared& g,
+                                         const float* Wu, float* pan, int Mp,
+                                         int D, float sf2) {
+  const int tid = threadIdx.x;
+  const int r0 = (tid >> 4) * 4, c0 = (tid & 15) * 4;
+  const float scale = gp_scale<KID>();
+  for (int i = tid; i < Mp * GS_PW; i += GP_THREADS) {
+    const int m = i / GS_PW, n = i % GS_PW;
+    float r2 = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float dd = g.zs[d * Mp + m] - g.xs[d * GS_PW + n];
+      r2 += dd * dd;
+    }
+    pan[i] = sf2 * gp_phi<KID>(r2 * scale) * (g.zm[m] * g.mx[n]);
+  }
+  __syncthreads();
+  for (int iT = Mp - GS_T; iT >= 0; iT -= GS_T)
+    for (int cs = 0; cs < GS_PW; cs += GS_T) {
+      // A~[iT + r][cs + c] = sum_{q < iT + T} W_u[q][iT + r] Kuf[q][cs + c];
+      // the rows it overwrites are read by no later tile row
+      float acc[4][4] = {};
+      gs_mma64<true, false>(acc, Wu + iT, Mp, pan + cs, GS_PW, iT + GS_T,
+                            s.As);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          pan[(size_t)(iT + r0 + a) * GS_PW + cs + c0 + b] = acc[a][b];
+    }
+  __syncthreads();
+}

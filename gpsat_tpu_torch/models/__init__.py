@@ -1,3 +1,42 @@
-"""Batched model engines (exact GPR)."""
+"""Model zoo + factory: the batched sweep engines and the per-expert models.
 
+`get_model(name)` mirrors gpsat_tpu.models.get_model (reference factory:
+GPSat/models/__init__.py:3-28). Reference model names are accepted as aliases
+so existing configs keep working: GPflowGPRModel -> GPRModel,
+GPflowSGPRModel -> SGPRModel, and so on.
+"""
+
+from gpsat_tpu_torch.models.base import BaseGPRModel  # noqa: F401
 from gpsat_tpu_torch.models.batched import BatchedGPR  # noqa: F401
+
+# names of gpsat_tpu.models.get_model whose classes come with a later slice of
+# the port (ROADMAP.md, "Slice 7: the other model families")
+_NOT_PORTED = ("SVGPModel", "GPflowSVGPModel", "VFFModel", "GPflowVFFModel",
+               "ASVGPModel", "GPflowASVGPModel", "KISSGPModel",
+               "GPyTorchKISSGPModel", "MultioutputGPRModel",
+               "MultioutputSVGPModel")
+
+
+def get_model(name):
+    """Map a model name string to a model class."""
+    from gpsat_tpu_torch.models.exact_gpr import GPRModel
+    from gpsat_tpu_torch.models.sgpr import SGPRModel
+
+    registry = {
+        "GPRModel": GPRModel,
+        "SGPRModel": SGPRModel,
+        # reference-name aliases (config compatibility)
+        "GPflowGPRModel": GPRModel,
+        "GPflowSGPRModel": SGPRModel,
+        "PurePythonGPR": GPRModel,
+        "sklearnGPRModel": GPRModel,
+        "GPyTorchGPRModel": GPRModel,
+    }
+    if name in registry:
+        return registry[name]
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"model: {name} is not ported to gpsat_tpu_torch yet; it comes "
+            "with slice 7 of the port (the other model families)")
+    raise NotImplementedError(
+        f"model: {name} is not implemented; available: {sorted(registry)}")

@@ -624,7 +624,8 @@ def _sgpr_fit_predict(u0, X, y, mask, Z, zmask, Xs, bijectors, fixed, *,
         # value+gradient path when supported (trainable Z packs Z into u,
         # which the fused path does not cover)
         vg_fun = make_sgpr_vg_fun(kernel, free_names, d, jitter, route) \
-            if (fused and not train_z) else None
+            if (fused and not train_z and cuda_sgpr.sgpr_vg_supported(
+                kernel, d, X.shape[1], M, route)) else None
         mls, rec = linesearch_policy(X.dtype, "sgpr")
         res = batched_lbfgs(objective, u0, args, max_iter, gtol, ftol, 10,
                             mls, rec, vg_fun=vg_fun)
@@ -669,8 +670,9 @@ class BatchedSGPR(BatchedGPR):
     minimises the *negative* ELBO; the reported objective is the ELBO.
 
     `route` picks how the fused value_and_grad runs on the card: "hybrid"
-    (torch matmuls around the cholinv kernel, the default) or "stream" (the
-    two N-streamed kernels); see ops/cuda_sgpr.py.
+    (torch matmuls around the cholinv kernel, the default), "stream" (the
+    two N-streamed kernels) or "mega" (one launch entry for the whole
+    evaluation; N at most 4096, autograd beyond); see ops/cuda_sgpr.py.
     """
 
     model_name = "SGPRModel"
@@ -789,7 +791,8 @@ class BatchedSGPR(BatchedGPR):
         vg_fun = make_sgpr_vg_fun(self.kernel, self.free_names, self.d,
                                   self.jitter, self.route) \
             if _kernel_path(self.device) and cuda_sgpr.sgpr_vg_supported(
-                self.kernel, self.d, N, self.num_inducing) else None
+                self.kernel, self.d, N, self.num_inducing, self.route) \
+            else None
         return make_sgpr_objective(self.kernel, self.free_names, self.d,
                                    self.jitter), vg_fun
 

@@ -33,6 +33,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # xt, yt, p, out, ws, B, Np, D, kernel_id, stream
     "gp_vg_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xt, yt, p, out, ws, B, Np, D, kernel_id, stream
+    "gp_value_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # xt, yt, p, xs, mean, var, ws, B, Np, Pp, D, kernel_id, stream
     "gp_predict_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P],
@@ -44,6 +46,8 @@ _SIGNATURES = {
     # xt, yt, zt, p, Wu, P, dd, gout, partG, ws, B, Np, Mp, D, S, kernel_id,
     # stream
     "gp_sgpr_stream2_launch": [_P] * 10 + [_I] * 6 + [_P],
+    # xt, yt, zt, p, out, ws, B, Np, Mp, D, S, jitter, kernel_id, stream
+    "gp_sgpr_vg_launch": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _P],
 }
 
 
@@ -129,6 +133,9 @@ def load_library():
         fn.restype = ctypes.c_int
     lib.gp_error_string.argtypes = [ctypes.c_int]
     lib.gp_error_string.restype = ctypes.c_char_p
+    # B, Mp, S -> floats of scratch gp_sgpr_vg_launch needs
+    lib.gp_sgpr_vg_ws_floats.argtypes = [_I, _I, _I]
+    lib.gp_sgpr_vg_ws_floats.restype = ctypes.c_longlong
     return lib
 
 

@@ -1,5 +1,6 @@
-"""Fused masked-GPR kernels for Hopper: NLML value + gradient, and posterior
-prediction (torch counterpart of gpsat_tpu/ops/pallas_gpr.py).
+"""Fused masked-GPR kernels for Hopper: NLML value + gradient, NLML value
+only, and posterior prediction (torch counterpart of
+gpsat_tpu/ops/pallas_gpr.py).
 
 The CUDA sources are in ``gpsat_tpu_torch/csrc`` (built by ``ops/_build.py``
 at first use):
@@ -9,18 +10,22 @@ at first use):
                     analytic gradient, one thread block per expert.
 - ``gp_predict.cu`` replaces ``pallas_gpr._predict_kernel``: the same factor,
                     then mean = Ks^T alpha and var = sf2 - ||W^T Ks||^2.
+- ``gp_value.cu``   replaces ``pallas_gpr._value_kernel``: the factor alone
+                    with the observations carried through it (z = U^{-T} y),
+                    value = 0.5 z.z + log det + 0.5 n log 2 pi.
 - ``gp_common.cuh`` the shared device code (``_phi``, ``_phi_grad`` and the
                     factor/inverse routine ``_factor_tile_and_invert``).
 
-Wrappers (``nlml_vg_batched``, ``posterior_predict_batched``) keep the JAX
-signatures and output contract: raw-parameter gradients, the scalar-
+Wrappers (``nlml_vg_batched``, ``nlml_value_batched``,
+``posterior_predict_batched``) keep the JAX signatures and output contract: raw-parameter gradients, the scalar-
 lengthscale broadcast, ``f*_var`` clamped at 0. On a CUDA tensor a wrapper
 launches its kernel or raises; it takes its plain PyTorch version
 (``*_plain``, the same function in torch.linalg) only for tensors on the
 CPU. Each wrapper counts its launches in ``<wrapper>.launches``.
 
-The shape gates ``cuda_vg_supported`` / ``cuda_predict_supported`` keep the
-meaning of ``pallas_vg_supported`` / ``pallas_predict_supported``: kernel in
+The shape gates ``cuda_vg_supported`` / ``cuda_value_supported`` /
+``cuda_predict_supported`` keep the meaning of ``pallas_vg_supported`` /
+``pallas_value_supported`` / ``pallas_predict_supported``: kernel in
 the list, D <= 5, N padded to 128 at most 1024, P padded to 128 at most
 2048. The engine takes the ops/gpr path outside them. The kernels themselves
 pad N and P only to their 32-wide tile.
@@ -33,7 +38,8 @@ import torch
 from gpsat_tpu_torch.ops import _build
 
 __all__ = ["cuda_vg_supported", "nlml_vg_batched", "nlml_vg_batched_plain",
-           "cuda_predict_supported", "posterior_predict_batched",
+           "cuda_value_supported", "nlml_value_batched",
+           "nlml_value_batched_plain", "cuda_predict_supported", "posterior_predict_batched",
            "posterior_predict_batched_plain", "launch_counts",
            "reset_launch_counts"]
 
@@ -70,6 +76,12 @@ def cuda_vg_supported(kernel, d, N=None):
     if kernel not in _KERNELS or d > _MAX_D:
         return False
     return N is None or _pad_to(N, _GATE_PAD) <= 1024
+
+
+def cuda_value_supported(kernel, d, N=None):
+    """Can the fused value-only kernel handle this configuration? (The same
+    limits as the value_and_grad kernel.)"""
+    return cuda_vg_supported(kernel, d, N)
 
 
 def cuda_predict_supported(kernel, d, N=None, P=None):
@@ -251,6 +263,83 @@ def nlml_vg_batched_plain(params, X, y, maskf, kernel, jitter):
 
 
 # ---------------------------------------------------------------------------
+# value only
+# ---------------------------------------------------------------------------
+
+def _masked_matrix(xt, p, kernel, D):
+    """(A, xd, m) of the packed inputs: the masked noisy kernel matrix
+    [B,Np,Np], the lengthscale-scaled coordinates [B,D,Np], the mask."""
+    m = xt[:, 7, :]
+    xd = xt[:, :D, :] / p[:, :D, None]
+    r2 = ((xd[:, :, :, None] - xd[:, :, None, :]) ** 2).sum(dim=1) \
+        * _KERNELS[kernel]
+    A = p[:, 5, None, None] * _phi(kernel, r2) \
+        * (m[:, :, None] * m[:, None, :]) \
+        + torch.diag_embed(m * (p[:, 6, None] - 1.0) + 1.0)
+    return A, xd, m
+
+
+def _value_plain(xt, yt, p, kernel, D):
+    """Plain torch version of csrc/gp_value.cu on the packed inputs: [B]
+    NLML values, NaN where the matrix is not positive definite."""
+    A, _, m = _masked_matrix(xt, p, kernel, D)
+    L, info = torch.linalg.cholesky_ex(A)
+    bad = (info != 0) | ~torch.isfinite(A).all(dim=(1, 2))
+    z = torch.linalg.solve_triangular(L, yt[:, :, None], upper=False)[:, :, 0]
+    val = 0.5 * (z * z).sum(dim=1) \
+        + torch.log(torch.diagonal(L, dim1=1, dim2=2)).sum(dim=1) \
+        + 0.5 * m.sum(dim=1) * _LOG_2PI
+    return torch.where(bad, torch.full_like(val, torch.nan), val)
+
+
+def _value_launch(xt, yt, p, kernel, D):
+    """Launch csrc/gp_value.cu on packed f32 CUDA inputs -> [B] values."""
+    _check_cuda(xt, yt, p)
+    B, _, Np = xt.shape
+    out = torch.empty(B, dtype=torch.float32, device=xt.device)
+    if B == 0:
+        return out
+    ws = torch.empty(B, Np, Np, dtype=torch.float32, device=xt.device)
+    lib = _build.load_library()
+    with torch.cuda.device(xt.device):
+        stream = torch.cuda.current_stream(xt.device).cuda_stream
+        code = lib.gp_value_launch(xt.data_ptr(), yt.data_ptr(), p.data_ptr(),
+                                   out.data_ptr(), ws.data_ptr(), B, Np, D,
+                                   _KERNEL_IDS[kernel], stream)
+    _build.check(lib, code, "gp_value_launch")
+    nlml_value_batched.launches += 1
+    return out
+
+
+def nlml_value_batched(params, X, y, maskf, kernel, jitter):
+    """Batched NLML values via the fused value-only kernel.
+
+    params/X/y/maskf as nlml_vg_batched. Returns [B] f32 values equal to
+    ops.gpr.nlml per expert at f32 tolerance; NaN for an expert whose matrix
+    is not positive definite.
+    """
+    B, N, D = X.shape
+    xt, yt, p, _, _ = _pack(params, X, y, maskf, jitter)
+    if X.is_cuda:
+        if not cuda_value_supported(kernel, D, N):
+            raise ValueError(f"nlml_value_batched: kernel={kernel} D={D} "
+                             f"N={N} is outside the CUDA kernel's gate")
+        return _value_launch(xt, yt, p, kernel, D)
+    if X.device.type == "cpu":
+        return _value_plain(xt, yt, p, kernel, D)
+    raise ValueError(f"nlml_value_batched: unsupported device {X.device}")
+
+
+nlml_value_batched.launches = 0
+
+
+def nlml_value_batched_plain(params, X, y, maskf, kernel, jitter):
+    """nlml_value_batched computed with torch.linalg on any device."""
+    xt, yt, p, _, _ = _pack(params, X, y, maskf, jitter)
+    return _value_plain(xt, yt, p, kernel, X.shape[2])
+
+
+# ---------------------------------------------------------------------------
 # posterior prediction
 # ---------------------------------------------------------------------------
 
@@ -265,14 +354,9 @@ def _pack_xs(Xs):
 def _predict_plain(xt, yt, p, xs, kernel, D):
     """Plain torch version of csrc/gp_predict.cu: (mean, var) [B, Pp]."""
     scale = _KERNELS[kernel]
-    m = xt[:, 7, :]
     sf2 = p[:, 5, None, None]
-    noise = p[:, 6, None]
-    xd = xt[:, :D, :] / p[:, :D, None]
+    A, xd, m = _masked_matrix(xt, p, kernel, D)
     xp = xs[:, :D, :] / p[:, :D, None]
-    r2 = ((xd[:, :, :, None] - xd[:, :, None, :]) ** 2).sum(dim=1) * scale
-    mm = m[:, :, None] * m[:, None, :]
-    A = sf2 * _phi(kernel, r2) * mm + torch.diag_embed(m * (noise - 1.0) + 1.0)
     L, info = torch.linalg.cholesky_ex(A)
     L = torch.where((info != 0)[:, None, None], torch.full_like(L, torch.nan),
                     L)
@@ -357,9 +441,11 @@ def _counted_wrappers():
     from gpsat_tpu_torch.ops import cuda_cholinv, cuda_sgpr
     return {"nlml_vg": nlml_vg_batched,
             "posterior_predict": posterior_predict_batched,
+            "nlml_value": nlml_value_batched,
             "cholinv": cuda_cholinv.cholinv_batched,
             "sgpr_stream1": cuda_sgpr.sgpr_stream1,
-            "sgpr_stream2": cuda_sgpr.sgpr_stream2}
+            "sgpr_stream2": cuda_sgpr.sgpr_stream2,
+            "sgpr_vg_mega": cuda_sgpr.sgpr_vg_mega}
 
 
 def launch_counts():

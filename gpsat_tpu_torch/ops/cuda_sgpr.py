@@ -26,7 +26,7 @@ nothing to value or gradients (tr B^{-1} and M cancel row-wise). M is padded
 to a multiple of 128, as in the JAX package (the constant M in g_s2 is the
 padded one).
 
-Two routes compute the same value and gradient (``sgpr_vg_batched(...,
+Three routes compute the same value and gradient (``sgpr_vg_batched(...,
 route=)``):
 
 - ``"hybrid"`` (the default): torch batched matmuls around the two
@@ -34,7 +34,13 @@ route=)``):
 - ``"stream"``: the same factorisations, torch for the M x M work, and the
   two streamed kernels of ``csrc/gp_sgpr_stream.cu`` for everything N-sized
   (``sgpr_stream1`` / ``sgpr_stream2`` below, each with its plain version
-  and launch counter), so no [B, M, N] array is held by torch.
+  and launch counter), so no [B, M, N] array is held by torch;
+- ``"mega"``: everything between the packed inputs and the [B, 8] output
+  lanes in one launch entry of ``csrc/gp_sgpr_vg.cu`` (``sgpr_vg_mega``
+  below, the counterpart of ``pallas_sgpr._sgpr_vg_kernel``): no torch op and
+  no library call in between. It forms
+  Kbar_uu = 0.5 [W_u (Bsum - P) W_u^T + s^-4 e e^T] with Bsum = B - I and
+  P = I - B^{-1} = B^{-1} Bsum, the same function as the sum above.
 
 ``sgpr_predict_batched`` is hybrid style. On CUDA tensors the wrappers launch
 their kernels or raise; on CPU tensors they run the plain versions. Every
@@ -53,21 +59,27 @@ from gpsat_tpu_torch.ops.cuda_gpr import (_GATE_PAD, _KERNEL_IDS, _KERNELS,
                                           _phi_grad)
 
 __all__ = ["sgpr_vg_supported", "sgpr_vg_batched", "sgpr_predict_batched",
-           "sgpr_stream1", "sgpr_stream2", "ROUTES"]
+           "sgpr_stream1", "sgpr_stream2", "sgpr_vg_mega", "ROUTES"]
 
-ROUTES = ("hybrid", "stream")
+ROUTES = ("hybrid", "stream", "mega")
 _LOG_2PI = math.log(2.0 * math.pi)
 _PANEL = 128        # GS_PW in csrc/gp_sgpr_stream.cu
 _MAX_SPLITS = 8     # cap on the data-axis splits (bounds the partials)
 
 
-def sgpr_vg_supported(kernel, d, N=None, M=None):
+def sgpr_vg_supported(kernel, d, N=None, M=None, route="hybrid"):
     """Can the fused SGPR value_and_grad / prediction path handle this
-    configuration? Both routes stream N, so only the kernel family, the
-    coordinate dimension and the factor size are gated."""
+    configuration? Every route streams N, so the kernel family, the
+    coordinate dimension and the factor size are gated; route "mega" keeps in
+    addition the data limit of the monolithic JAX kernel: N padded (to 128 up
+    to 1024, to 1024 beyond) at most 4096."""
     if kernel not in _KERNELS or d > _MAX_D:
         return False
-    return M is None or _pad_to(M, _GATE_PAD) <= 1024
+    if M is not None and _pad_to(M, _GATE_PAD) > 1024:
+        return False
+    if route == "mega" and N is not None:
+        return _pad_to(N, 1024 if N > 1024 else _GATE_PAD) <= 4096
+    return True
 
 
 @contextlib.contextmanager
@@ -437,6 +449,104 @@ def _sgpr_vg_stream(params, X, y, maskf, Z, zmaskf, kernel, jitter):
     return _finish(params, val, g_logls, g_logsf2, g_s2, ls, scalar_ls, sf2)
 
 
+# ---------------------------------------------------------------------------
+# mega route: one launch entry from the packed inputs to the output lanes
+# ---------------------------------------------------------------------------
+
+def _mega_plain(xt, yt, zt, p, kernel, D, jitter):
+    """Plain torch version of csrc/gp_sgpr_vg.cu on the packed inputs: [B, 8]
+    lanes 0 = negative ELBO, 1..D = d/dlog ls_j, 6 = d/dlog sf2, 7 = d/ds2."""
+    from gpsat_tpu_torch.ops.cuda_cholinv import cholinv_batched_plain
+    scale = _KERNELS[kernel]
+    Mp = zt.shape[2]
+    sf2, s2 = p[:, 5], p[:, 6]
+    sf2c = sf2[:, None, None]
+    zm = zt[:, 7, :]
+    Zs = (zt[:, :D, :] / p[:, :D, None]).transpose(1, 2)
+    eyeM = torch.eye(Mp, dtype=xt.dtype, device=xt.device)
+
+    Kuu, r2_uu, phi_uu, zmm = _kuu(Zs, zm, sf2, kernel, jitter)
+    W_u, _ = cholinv_batched_plain(Kuu)
+    Bsum, at, trA2 = _stream1_plain(xt, yt, zt, p, W_u, kernel, D)
+    W_B, logdetB = cholinv_batched_plain(Bsum + eyeM)
+
+    c = (at[:, None, :] @ W_B)[:, 0, :]
+    dd = (W_B @ c[:, :, None])[:, :, 0]
+    val, g_s2 = _value_and_gs2(
+        torch.sum(xt[:, 7, :], dim=1), logdetB, s2, sf2,
+        torch.sum(yt * yt, dim=1), torch.sum(at * dd, dim=1),
+        torch.sum(dd * dd, dim=1), trA2, torch.sum(W_B * W_B, dim=(1, 2)), Mp)
+
+    Pmat = W_B @ (W_B.mT @ Bsum)
+    e = (W_u @ dd[:, :, None])[:, :, 0]
+    Kbar_uu = 0.5 * (W_u @ ((Bsum - Pmat) @ W_u.mT)
+                     + (e[:, :, None] * e[:, None, :])
+                     / (s2 * s2)[:, None, None])
+    out = _stream2_plain(xt, yt, zt, p, W_u, Pmat, dd, kernel, D)
+    out[:, 0] = val
+    QF_uu = Kbar_uu * (sf2c * _phi_grad(kernel, r2_uu) * zmm)
+    for j in range(D):
+        out[:, 1 + j] += scale * _q2_contract(QF_uu, Zs[:, :, j], Zs[:, :, j])
+    out[:, 6] += torch.sum(Kbar_uu * (sf2c * phi_uu * zmm), dim=(1, 2)) \
+        + 0.5 * sf2 * torch.sum(xt[:, 7, :], dim=1) / s2
+    out[:, 7] = g_s2
+    return out
+
+
+def _mega_launch(xt, yt, zt, p, kernel, D, jitter):
+    _check_cuda(xt, yt, zt, p)
+    B, _, Np = xt.shape
+    Mp = zt.shape[2]
+    if not sgpr_vg_supported(kernel, D, None, Mp) or Mp % _GATE_PAD:
+        raise ValueError(f"sgpr_vg_mega: kernel={kernel} D={D} M_pad={Mp} is "
+                         "outside the CUDA kernels' gate")
+    if Np % _PANEL or Np > 4096:
+        raise ValueError("sgpr_vg_mega: N must be padded to 128 and at most "
+                         "4096")
+    dev = xt.device
+    out = torch.empty(B, 8, dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    S = _splits(B, Np, dev)
+    lib = _build.load_library()
+    ws = torch.empty(lib.gp_sgpr_vg_ws_floats(B, Mp, S), dtype=torch.float32,
+                     device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.gp_sgpr_vg_launch(
+            xt.data_ptr(), yt.data_ptr(), zt.data_ptr(), p.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), B, Np, Mp, D, S, float(jitter),
+            _KERNEL_IDS[kernel], stream)
+    _build.check(lib, code, "gp_sgpr_vg_launch")
+    sgpr_vg_mega.launches += 1
+    return out
+
+
+def sgpr_vg_mega(xt, yt, zt, p, kernel, D, jitter):
+    """[B, 8] lanes (0 negative ELBO, 1..D d/dlog ls_j, 6 d/dlog sf2, 7
+    d/ds2) of the packed inputs (see _pack_stream). Kernel on CUDA tensors,
+    plain version on CPU tensors."""
+    if xt.is_cuda:
+        return _mega_launch(xt, yt, zt, p, kernel, D, jitter)
+    if xt.device.type == "cpu":
+        return _mega_plain(xt, yt, zt, p, kernel, D, jitter)
+    raise ValueError(f"sgpr_vg_mega: unsupported device {xt.device}")
+
+
+sgpr_vg_mega.launches = 0
+
+
+def _sgpr_vg_mega(params, X, y, maskf, Z, zmaskf, kernel, jitter):
+    """Pack, one launch, unpack to raw-parameter gradients."""
+    X, Z, m, zm, ls, scalar_ls, sf2, s2, ybar = _prepare(
+        params, X, y, maskf, Z, zmaskf)
+    D = X.shape[2]
+    xt, yt, zt, p = _pack_stream(X, m, ybar, Z, zm, ls, sf2, s2)
+    out = sgpr_vg_mega(xt, yt, zt, p, kernel, D, jitter)
+    return _finish(params, out[:, 0], out[:, 1:1 + D], out[:, 6], out[:, 7],
+                   ls, scalar_ls, sf2)
+
+
 def sgpr_vg_batched(params, X, y, maskf, Z, zmaskf, kernel, jitter,
                     route="hybrid"):
     """Batched SGPR collapsed negative-ELBO value AND gradient.
@@ -445,15 +555,18 @@ def sgpr_vg_batched(params, X, y, maskf, Z, zmaskf, kernel, jitter,
     kernel_variance [B], likelihood_variance [B]); X [B,N,D]; y [B,N]; maskf
     [B,N] float; Z [B,M,D]; zmaskf [B,M] float. Returns (val [B], grads) in
     f32 with raw-parameter gradients equal to autograd through
-    ops/sgpr.neg_elbo at f32 tolerance. `route` picks "hybrid" (default) or
-    "stream" (module docstring).
+    ops/sgpr.neg_elbo at f32 tolerance. `route` picks "hybrid" (default),
+    "stream" or "mega" (module docstring).
     """
     if route not in ROUTES:
         raise ValueError(f"sgpr_vg_batched: route must be one of {ROUTES}")
-    if not sgpr_vg_supported(kernel, X.shape[2], X.shape[1], Z.shape[1]):
+    if not sgpr_vg_supported(kernel, X.shape[2], X.shape[1], Z.shape[1],
+                             route):
         raise ValueError(f"sgpr_vg_batched: kernel={kernel} D={X.shape[2]} "
-                         f"M={Z.shape[1]} is outside the fused path's gate")
-    fn = _sgpr_vg_stream if route == "stream" else _sgpr_vg_hybrid
+                         f"N={X.shape[1]} M={Z.shape[1]} is outside the "
+                         f"gate of route {route!r}")
+    fn = {"hybrid": _sgpr_vg_hybrid, "stream": _sgpr_vg_stream,
+          "mega": _sgpr_vg_mega}[route]
     with torch.no_grad(), _full_f32_matmul():
         return fn(params, X, y, maskf, Z, zmaskf, kernel, float(jitter))
 

@@ -6,9 +6,10 @@
 `gpr` (the default) runs BatchedGPR.fit_predict_many on the bench `gpr`
 workload (E=512, N=400, P=400, D=3, Matern32, f32); `sgpr` runs
 BatchedSGPR.fit_predict_many on the bench `sgpr` workload (E=128, N=2000,
-P=400, D=3, M=500, 48 slots), once per route ("hybrid", "stream"). Each sweep
-runs three times: a cold run (first use of every kernel), a warm run timed on
-the host clock, and a warm run under torch.profiler. Prints one JSON object
+P=400, D=3, M=500, 48 slots), once per route ("hybrid", "stream", "mega").
+Each sweep runs three times: a cold run (first use of every kernel), a warm
+run timed on the host clock, and a warm run under torch.profiler. Prints one
+JSON object
 per sweep: wall times, pool iterations and slots, launches of each fused
 kernel, peak device memory, the device time of each CUDA kernel by name, and
 the device's busy share of the profiled wall time. Needs a CUDA device;
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from gpsat_tpu_torch.models.batched import BatchedGPR, BatchedSGPR
-from gpsat_tpu_torch.ops import cuda_gpr
+from gpsat_tpu_torch.ops import cuda_gpr, cuda_sgpr
 from gpsat_tpu_torch.parallel.scheduler import auto_batch_size
 
 
@@ -146,7 +147,7 @@ def main():
         results.append(profile(engine, E, N, P, D, slots))
     else:
         E, N, P, D, M = args.experts or 128, 2000, 400, 3, 500
-        for route in ("hybrid", "stream"):
+        for route in cuda_sgpr.ROUTES:
             results.append(profile(bench_sgpr_engine(D, M, route=route), E, N,
                                    P, D, sgpr_slots(E, N, M)))
     text = "\n".join(json.dumps(r) for r in results)

@@ -1,5 +1,6 @@
-"""Carry per-expert hyperparameters and L-BFGS states over from the JAX
-package, as numpy arrays, so both packages can start from the same point.
+"""Carry per-expert hyperparameters, L-BFGS states and per-expert model
+states over from the JAX package, as numpy arrays, so both packages can start
+from the same point.
 
 Nothing here imports jax: the caller converts JAX arrays with ``np.asarray``
 (which every helper also applies itself).
@@ -12,7 +13,7 @@ from gpsat_tpu_torch import default_dtype, resolve_device
 from gpsat_tpu_torch.ops.lbfgs import Carry
 
 __all__ = ["params_from_jax", "inducing_from_jax", "unconstrained_from_jax",
-           "carry_from_jax"]
+           "carry_from_jax", "model_state_from_jax"]
 
 
 def _tensor(a, dtype, device):
@@ -54,3 +55,26 @@ def carry_from_jax(carry, dtype=None, device=None):
         else:
             out.append(_tensor(a, dtype, device))
     return Carry(int(np.asarray(it)), *out)
+
+
+def model_state_from_jax(state_np, bounds=None):
+    """The state of a JAX per-expert model (GPRModel / SGPRModel) for the
+    port's model of the same class.
+
+    state_np: the dict its `get_parameters()` gives (lengthscales [d],
+    kernel_variance, likelihood_variance, and inducing_points [M, d] for
+    SGPR). bounds: {name: (low, high)} of its Sigmoid constraints, already in
+    scaled coordinates (the `low` / `high` of `model.transforms[name]`).
+    Returns (parameters, constraints): `model.set_parameter_constraints(
+    constraints, move_within_tol=False)` then `model.set_parameters(
+    **parameters)` put the port's model in the same state.
+    """
+    parameters = {}
+    for name, value in state_np.items():
+        value = np.array(value, dtype=float)
+        parameters[name] = value if value.ndim else float(value)
+    constraints = {
+        name: {"low": np.array(low, dtype=float),
+               "high": np.array(high, dtype=float)}
+        for name, (low, high) in (bounds or {}).items()}
+    return parameters, constraints

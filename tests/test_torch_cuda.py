@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, held against their plain PyTorch
-versions, and the engines' CUDA paths (exact GPR and SGPR). Every test here needs an NVIDIA GPU and
-skips without one. The file imports neither jax nor gpsat_tpu, so it runs on
+versions, the engines' CUDA paths (exact GPR and SGPR) and the per-expert
+models on the card. Every test here needs an NVIDIA GPU and skips without one. The file imports neither jax nor gpsat_tpu, so it runs on
 a machine that has only torch:
 
     python -m pytest -o addopts="" --noconftest -q tests/test_torch_cuda.py
@@ -114,6 +114,77 @@ def test_outside_the_gate_raises_on_the_card(dev):
     params, X, y, m, _ = make_case(dev, B=2, N=40, D=3)
     with pytest.raises(ValueError, match="gate"):
         cuda_gpr.nlml_vg_batched(params, X, y, m, "RationalQuadratic", 0.0)
+    with pytest.raises(ValueError, match="gate"):
+        cuda_gpr.nlml_value_batched(params, X, y, m, "RationalQuadratic", 0.0)
+    params, X, y, m, _ = make_case(dev, B=1, N=1030, D=2)
+    with pytest.raises(ValueError, match="gate"):
+        cuda_gpr.nlml_value_batched(params, X, y, m, "Matern32", 0.0)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_value_kernel_matches_plain(dev, kernel):
+    """The value-only kernel against its plain version and against the
+    value+gradient kernel's value: rtol 2e-5, atol 1e-3; one launch."""
+    params, X, y, m, _ = make_case(dev)
+    before = cuda_gpr.nlml_value_batched.launches
+    got = cuda_gpr.nlml_value_batched(params, X, y, m, kernel, 1e-6)
+    assert cuda_gpr.nlml_value_batched.launches == before + 1
+    assert got.shape == (6,) and got.dtype == torch.float32
+    want = cuda_gpr.nlml_value_batched_plain(params, X, y, m, kernel, 1e-6)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=1e-3)
+    val, _ = cuda_gpr.nlml_vg_batched(params, X, y, m, kernel, 1e-6)
+    np.testing.assert_allclose(got.cpu().numpy(), val.cpu().numpy(),
+                               rtol=2e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("N,D", [(5, 1), (37, 2), (128, 5), (256, 2),
+                                 (1000, 2)])
+def test_value_kernel_at_ragged_and_edge_shapes(dev, N, D):
+    """Tile padding, N a panel multiple with B=7, and N near the gate."""
+    params, X, y, m, _ = make_case(dev, B=7, N=N, P=1, D=D, seed=N)
+    if N >= 1000:
+        params["likelihood_variance"] = params["likelihood_variance"] + 0.3
+    got = cuda_gpr.nlml_value_batched(params, X, y, m, "Matern32", 1e-6)
+    want = cuda_gpr.nlml_value_batched_plain(params, X, y, m, "Matern32",
+                                             1e-6)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=1e-3)
+
+
+def test_value_kernel_scalar_lengthscale_and_non_pd(dev):
+    params, X, y, m, _ = make_case(dev, B=4, N=64, D=2, seed=3)
+    params["lengthscales"] = params["lengthscales"][:, :1].contiguous()
+    got = cuda_gpr.nlml_value_batched(params, X, y, m, "Matern32", 1e-6)
+    want = cuda_gpr.nlml_value_batched_plain(params, X, y, m, "Matern32",
+                                             1e-6)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=1e-3)
+    params["likelihood_variance"][0] = -5.0
+    got = cuda_gpr.nlml_value_batched(params, X, y, m, "Matern32", 0.0)
+    assert torch.isnan(got[0])
+    assert torch.isfinite(got[1:]).all()
+
+
+def test_bulk_nlml_on_the_card(dev):
+    """make_gpr_value_fun on CUDA tensors goes through the value kernel once
+    and agrees with make_gpr_vg_fun's value at the same u."""
+    from gpsat_tpu_torch.models.exact_gpr import (make_gpr_value_fun,
+                                                  make_gpr_vg_fun)
+    from gpsat_tpu_torch.ops.transforms import Softplus
+    names = ("lengthscales", "kernel_variance", "likelihood_variance")
+    _, X, y, m, _ = make_case(dev, B=9, N=150)
+    u = torch.as_tensor(np.random.default_rng(2).normal(0, 0.5, (9, 5)),
+                        dtype=torch.float32, device=dev)
+    bij = {n: Softplus(shift=torch.zeros(
+        (9, 3) if n == "lengthscales" else 9, device=dev)) for n in names}
+    args = (u, X, y, m.bool(), bij, {})
+    before = cuda_gpr.nlml_value_batched.launches
+    val = make_gpr_value_fun("Matern32", names, 3)(*args)
+    assert cuda_gpr.nlml_value_batched.launches == before + 1
+    want, _ = make_gpr_vg_fun("Matern32", names, 3)(*args)
+    np.testing.assert_allclose(val.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=1e-3)
 
 
 def test_engine_on_the_card_matches_the_host_engine(dev):
@@ -271,9 +342,60 @@ def test_stream_kernels_match_plain(dev, kernel, N, M, D):
             cuda_sgpr.sgpr_stream2.launches) == (before[0] + 1, before[1] + 2)
 
 
-@pytest.mark.parametrize("route", ["hybrid", "stream"])
+@pytest.mark.parametrize("kernel,N,M,D", [
+    ("Matern32", 300, 100, 3), ("Matern12", 230, 100, 3),
+    ("Matern52", 230, 100, 3), ("RBF", 230, 100, 3),
+    ("Exponential", 230, 100, 3), ("Matern32", 70, 30, 1),
+    ("Matern32", 1100, 260, 2), ("Matern32", 150, 128, 5),
+    ("Matern32", 230, 150, 2), ("Matern32", 2000, 1000, 2)])
+def test_mega_kernel_matches_plain(dev, kernel, N, M, D):
+    """The one-launch value + gradient against its plain version on the same
+    packed inputs: value rtol 2e-4 atol 1e-3, gradient lanes rtol 5e-3 and
+    atol 5e-3 of the largest lane; a second launch repeats the first bit
+    for bit; one count per call."""
+    from gpsat_tpu_torch.ops import cuda_sgpr
+    params, X, y, m, Z, zm = make_sgpr_case(dev, N=N, M=M, D=D, seed=N)
+    Xp, Zp, mf, zmf, ls, _, sf2, s2, ybar = cuda_sgpr._prepare(
+        params, X, y, m, Z, zm)
+    xt, yt, zt, p = cuda_sgpr._pack_stream(Xp, mf, ybar, Zp, zmf, ls, sf2, s2)
+    jitter = 1e-6 if M < 1000 else 1e-3
+    before = (cuda_sgpr.sgpr_vg_mega.launches,
+              cuda_sgpr.sgpr_stream1.launches)
+    got = cuda_sgpr.sgpr_vg_mega(xt, yt, zt, p, kernel, D, jitter)
+    want = cuda_sgpr._mega_plain(xt, yt, zt, p, kernel, D, jitter).cpu()
+    assert got.shape == (4, 8)
+    np.testing.assert_allclose(got[:, 0].cpu().numpy(), want[:, 0].numpy(),
+                               rtol=2e-4, atol=1e-3)
+    np.testing.assert_allclose(
+        got[:, 1:].cpu().numpy(), want[:, 1:].numpy(), rtol=5e-3,
+        atol=5e-3 * max(1.0, float(want[:, 1:].abs().max())))
+    assert (got[:, 1 + D:6] == 0).all()
+    assert torch.equal(got, cuda_sgpr.sgpr_vg_mega(xt, yt, zt, p, kernel, D,
+                                                   jitter))
+    assert (cuda_sgpr.sgpr_vg_mega.launches,
+            cuda_sgpr.sgpr_stream1.launches) == (before[0] + 2, before[1])
+
+
+def test_mega_outside_its_gate_raises_on_the_card(dev):
+    from gpsat_tpu_torch.ops import cuda_sgpr
+    params, X, y, m, Z, zm = make_sgpr_case(dev, B=1, N=4200, M=20, D=2)
+    with pytest.raises(ValueError, match="gate"):
+        cuda_sgpr.sgpr_vg_batched(params, X, y, m, Z, zm, "Matern32", 1e-6,
+                                  route="mega")
+    with pytest.raises(ValueError, match="gate"):
+        cuda_sgpr.sgpr_vg_batched(params, X[:, :100], y[:, :100], m[:, :100],
+                                  Z, zm, "Cosine", 1e-6, route="mega")
+    xt = torch.zeros(1, 8, 100, device=dev)
+    with pytest.raises(ValueError, match="padded"):
+        cuda_sgpr.sgpr_vg_mega(xt, xt[:, 0], torch.zeros(1, 8, 128,
+                                                         device=dev),
+                               torch.ones(1, 8, device=dev), "Matern32", 2,
+                               1e-6)
+
+
+@pytest.mark.parametrize("route", ["hybrid", "stream", "mega"])
 def test_sgpr_vg_and_predict_match_f64(dev, route):
-    """Both routes and the prediction on the card against autograd through
+    """Every route and the prediction on the card against autograd through
     ops/sgpr.neg_elbo and ops/sgpr.predict in f64 on the host: value rtol
     2e-4 atol 1e-3, gradients rtol 5e-3 atol 5e-3, predictions rtol 2e-3
     atol 2e-4 (the tolerances of tests/test_pallas_sgpr.py)."""
@@ -302,7 +424,7 @@ def test_sgpr_vg_and_predict_match_f64(dev, route):
                                    rtol=2e-3, atol=2e-4, err_msg=k)
 
 
-@pytest.mark.parametrize("route", ["hybrid", "stream"])
+@pytest.mark.parametrize("route", ["hybrid", "stream", "mega"])
 def test_sgpr_engine_on_the_card_matches_the_host_engine(dev, route):
     """BatchedSGPR with no device runs on the card in f32, through the
     route's kernels, and lands on the f64 host engine's optima (ELBO rtol
@@ -330,9 +452,12 @@ def test_sgpr_engine_on_the_card_matches_the_host_engine(dev, route):
     got = eng.fit_predict_many(X, y, mask, Xs=Xs, slots=4)
     counts = cuda_gpr.launch_counts()
     trials = eng._last_pool_iterations + 1
-    assert counts["cholinv"] >= 2 * trials + 2
+    # the mega route factors inside its own launch entry: only the fill
+    # pass's prediction launches cholinv there
+    assert counts["cholinv"] >= (2 if route == "mega" else 2 * trials + 2)
     assert counts["sgpr_stream1"] == counts["sgpr_stream2"] == \
         (trials if route == "stream" else 0)
+    assert counts["sgpr_vg_mega"] == (trials if route == "mega" else 0)
     ref = BatchedSGPR(device="cpu", **kw).fit_predict_many(X, y, mask, Xs=Xs,
                                                            slots=4)
     assert got["converged"].all()
@@ -341,3 +466,61 @@ def test_sgpr_engine_on_the_card_matches_the_host_engine(dev, route):
                                atol=0.1)
     np.testing.assert_allclose(got["preds"]["f*"], ref["preds"]["f*"],
                                atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# per-expert models
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["GPRModel", "SGPRModel"])
+def test_per_expert_model_on_the_card_matches_the_host_model(dev, name):
+    """A model with no device runs on the card in f32 and lands where the
+    same model on the CPU in f64 does: predictions rtol 1e-3 atol 1e-4 (GPR)
+    and rtol 5e-3 atol 5e-3 (SGPR), objective rtol 1e-3."""
+    from gpsat_tpu_torch.models import get_model
+    rng = np.random.default_rng(3)
+    N, D = 200, 2
+    X = rng.uniform(-4, 4, (N, D))
+    y = 0.4 * np.sin(X[:, 0] * 0.8) + 0.3 * np.cos(X[:, 1] * 0.6) \
+        + 0.05 * rng.standard_normal(N)
+    Xs = rng.uniform(-4, 4, (20, D))
+    extra = {"num_inducing_points": 50} if name == "SGPRModel" else {}
+    cons = {"lengthscales": {"low": [0.01] * D, "high": [5.0] * D},
+            "likelihood_variance": {"low": 1e-5, "high": 1.0}}
+    out = {}
+    for device in (None, "cpu"):
+        model = get_model(name)(coords=X, obs=y, obs_mean="local",
+                                device=device, **extra)
+        model.set_parameter_constraints(cons, move_within_tol=True, tol=1e-2)
+        model.optimise_parameters(max_iter=250, gtol=1e-5, ftol=1e-9)
+        out[device] = (model, model.predict(Xs),
+                       model.get_objective_function_value())
+    model, preds, obj = out[None]
+    assert model.device.type == "cuda" and model.dtype == torch.float32
+    assert model.gpu_name == torch.cuda.get_device_name(0)
+    rtol, atol = (1e-3, 1e-4) if name == "GPRModel" else (5e-3, 5e-3)
+    for k in ("f*", "f*_var", "y_var"):
+        np.testing.assert_allclose(preds[k], out["cpu"][1][k], rtol=rtol,
+                                   atol=atol, err_msg=k)
+    np.testing.assert_allclose(obj, out["cpu"][2], rtol=1e-3)
+
+
+def test_sgpr_model_trains_inducing_points_on_the_card(dev):
+    """train_inducing_points=True on the card in f32: autograd through
+    ops/sgpr.neg_elbo, a few steps; the inducing points move, stay finite,
+    and the ELBO does not get worse (a trial whose Kuu is not positive
+    definite in f32 reads as NaN for the linesearch, it does not raise)."""
+    from gpsat_tpu_torch.models.sgpr import SGPRModel
+    rng = np.random.default_rng(5)
+    X = rng.uniform(-4, 4, (150, 2))
+    y = np.sin(X[:, 0]) + 0.1 * rng.standard_normal(150)
+    model = SGPRModel(coords=X, obs=y, num_inducing_points=20)
+    assert model.device.type == "cuda"
+    Z0, before = model.get_inducing_points(), \
+        model.get_objective_function_value()
+    assert model.optimise_parameters(train_inducing_points=True,
+                                     max_iter=5) in (True, False)
+    Z1 = model.get_inducing_points()
+    assert Z1.shape == Z0.shape and np.isfinite(Z1).all()
+    assert np.abs(Z1 - Z0).max() > 1e-5
+    assert model.get_objective_function_value() >= before

@@ -149,8 +149,12 @@ def test_c_entry_points_match_their_ctypes_signatures():
     cu, cuh = _build._sources()
     names = sorted(p.rsplit("/", 1)[-1] for p in cu + cuh)
     assert names == ["gp_cholinv.cu", "gp_common.cuh", "gp_predict.cu",
-                     "gp_sgpr_stream.cu", "gp_vg.cu"]
-    assert len(_build._SIGNATURES) == 5
+                     "gp_sgpr_common.cuh", "gp_sgpr_stream.cu",
+                     "gp_sgpr_vg.cu", "gp_value.cu", "gp_vg.cu"]
+    assert sorted(_build._SIGNATURES) == [
+        "gp_cholinv_launch", "gp_predict_launch", "gp_sgpr_stream1_launch",
+        "gp_sgpr_stream2_launch", "gp_sgpr_vg_launch", "gp_value_launch",
+        "gp_vg_launch"]
     text = "".join(open(p).read() for p in cu)
     for name, argtypes in _build._SIGNATURES.items():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)

@@ -260,7 +260,7 @@ def test_sgpr_vg_gate_and_route_argument():
     assert not cuda_sgpr.sgpr_vg_supported("RationalQuadratic", 2, 100, 50)
     case = make_case(B=2, N=40, M=10)
     with pytest.raises(ValueError, match="route"):
-        torch_vg("mega", case[5], *case[:5], "Matern32")
+        torch_vg("fused", case[5], *case[:5], "Matern32")
     with pytest.raises(ValueError, match="gate"):
         torch_vg("hybrid", case[5], *case[:5], "Cosine")
 

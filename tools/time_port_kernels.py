@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Time the CUDA kernels of one checkout of gpsat_tpu_torch on the card.
+
+    python tools/time_port_kernels.py [ROOT]
+
+ROOT (default: this checkout) is a directory holding a `gpsat_tpu_torch`
+package; its kernels are built there and timed at the widths the bench
+sweeps give them (vg: 345 experts, predict: 512, N=400, P=400; cholinv,
+stream1, stream2: 48 experts, N=2000, M=500 padded to 512; Matern32, D=3,
+fixed random hyperparameters), by CUDA events over 20 warm launches. Prints
+one JSON line. To compare two commits, unpack each with `git archive` and
+run this script on both in one job, in the order parent, change, change,
+parent: two jobs may land on two cards.
+"""
+
+import json
+import os
+import sys
+
+ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
+                       os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+REPS = 20
+
+
+def cuda_ms(fn):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / REPS
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("time_port_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    from gpsat_tpu_torch.ops import _build, cuda_cholinv, cuda_gpr, cuda_sgpr
+    from gpsat_tpu_torch.profile_sweep import bench_sgpr_engine, workload
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build(force=True)
+    rng = np.random.default_rng(4)
+    kernel, D = "Matern32", 3
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device="cuda")
+
+    def hyper(E):
+        return {"lengthscales": t(rng.uniform(0.5, 2.0, (E, D))),
+                "kernel_variance": t(rng.uniform(0.05, 0.5, E)),
+                "likelihood_variance": t(rng.uniform(0.01, 0.1, E))}
+
+    out = {"tree": ROOT, "card": torch.cuda.get_device_name(0)}
+    for name, E in (("vg", 345), ("predict", 512)):
+        X, y, mask, Xs = workload(E, 400, 400, D, seed=3)
+        xt, yt, p, _, _ = cuda_gpr._pack(hyper(E), t(X), t(y),
+                                         t(mask.astype(np.float32)), 1e-6)
+        xs = cuda_gpr._pack_xs(t(Xs))
+        if name == "vg":
+            out[name] = cuda_ms(
+                lambda: cuda_gpr._vg_launch(xt, yt, p, kernel, D))
+        else:
+            out[name] = cuda_ms(
+                lambda: cuda_gpr._predict_launch(xt, yt, p, xs, kernel, D))
+
+    B = 48
+    X, y, mask, _ = workload(B, 2000, 1, D, seed=3)
+    Z, zmask = bench_sgpr_engine(D, 500)._build_inducing(X, mask)
+    Xp, Zp, m, zm, ls, _, sf2, s2, ybar = cuda_sgpr._prepare(
+        hyper(B), t(X), t(y), t(mask), t(Z), t(zmask))
+    Kuu = cuda_sgpr._kuu(Zp / ls[:, None, :], zm, sf2, kernel, 1e-6)[0]
+    xt, yt, zt, p = cuda_sgpr._pack_stream(Xp, m, ybar, Zp, zm, ls, sf2, s2)
+    W_u, _ = cuda_cholinv.cholinv_batched(Kuu)
+    Bsum, at, _ = cuda_sgpr.sgpr_stream1(xt, yt, zt, p, W_u, kernel, D)
+    Bm = Bsum + torch.eye(Bsum.shape[1], device="cuda")
+    W_B, _ = cuda_cholinv.cholinv_batched(Bm)
+    c = (at[:, None, :] @ W_B)[:, 0, :]
+    dd = (W_B @ c[:, :, None])[:, :, 0].contiguous()
+    Pm = (W_B @ (W_B.mT @ Bsum)).contiguous()
+    out["cholinv"] = cuda_ms(lambda: cuda_cholinv.cholinv_batched(Bm))
+    out["sgpr_stream1"] = cuda_ms(
+        lambda: cuda_sgpr.sgpr_stream1(xt, yt, zt, p, W_u, kernel, D))
+    out["sgpr_stream2"] = cuda_ms(
+        lambda: cuda_sgpr.sgpr_stream2(xt, yt, zt, p, W_u, Pm, dd, kernel, D))
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
