@@ -375,6 +375,23 @@ def cholinv_library(A):
     return torch.linalg.solve_triangular(L.mT, eye.expand_as(L), upper=True)
 
 
+def check_cholinv_non_pd(Bm, W, ld):
+    """A negative pivot in a later tile column of matrix 1 (row 300 of 512):
+    its ld is not finite, every other matrix's W and ld are those of the
+    launch without it, bit for bit, and W stays exactly upper."""
+    from gpsat_tpu_torch.ops import cuda_cholinv
+    bad = Bm.clone()
+    bad[1, 300, 300] = -1.0
+    Wb, ldb = cuda_cholinv.cholinv_batched(bad)
+    keep = torch.ones(Bm.shape[0], dtype=torch.bool, device=Bm.device)
+    keep[1] = False
+    require(not bool(torch.isfinite(ldb[1])), "cholinv: non-PD ld is finite")
+    require(torch.equal(Wb[keep], W[keep]) and torch.equal(ldb[keep],
+                                                           ld[keep]),
+            "cholinv: a non-PD matrix changed another matrix's outputs")
+    require((Wb.tril(-1) == 0).all(), "cholinv: non-PD W not exactly upper")
+
+
 def compare_sgpr_kernels(kernel, Kuu, packed):
     """Max abs errors of cholinv, stream1 and stream2 against their plain
     versions on one set of inputs. Tolerances of the JAX package's tests
@@ -427,6 +444,10 @@ def compare_sgpr_kernels(kernel, Kuu, packed):
     require((W_B.tril(-1) == 0).all(), "cholinv: W_B not exactly upper")
     ec = check_close(f"cholinv {kernel} B W", W_B, Wp_B, 2e-3, 2e-3)
     check_close(f"cholinv {kernel} B ld", ld_B, ldp_B, 1e-4, 1e-4)
+    again = cuda_cholinv.cholinv_batched(Bm)
+    require(torch.equal(W_B, again[0]) and torch.equal(ld_B, again[1]),
+            "cholinv does not repeat bit for bit")
+    check_cholinv_non_pd(Bm, W_B, ld_B)
 
     c = (want1[1][:, None, :] @ Wp_B)[:, 0, :]
     dd = (Wp_B @ c[:, :, None])[:, :, 0].contiguous()
@@ -565,6 +586,9 @@ def phase_sgpr_kernels(workload, engine, widths):
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
             if width == widths["pool"]:
                 rows[key] = {"max_abs_err": max(err[key], errs[key]), **r}
+        require(times["cholinv"]["ms"] < times["cholinv"]["library_ms"],
+                f"cholinv at B={width} is slower than torch.linalg: "
+                f"{times['cholinv']}")
     return rows
 
 
@@ -676,10 +700,38 @@ def phase_sgpr_main(cuda_gpr, workload, bench_sgpr_engine, slots):
     # 1e-9 is below the f32 resolution of a value of order 3e3), at nearby
     # points of a flat optimum where the f32 value itself is uncertain, so
     # they are held loosely: the median difference to 0.5 % of the mean
-    # |ELBO|, every expert to 5 %.
+    # |ELBO|, every expert to 5 %. Each route's reported (f32) ELBO is also
+    # held to 5 % of the f64 ELBO at its own optimum: an f32 factorisation
+    # that breaks down where Kuu is near singular lets the optimiser stop
+    # where the f32 bound is hundreds of nats too high (a cholinv whose
+    # panels used the explicit inverse of the diagonal tile did, at 2 of 128
+    # experts; tools/compare_sgpr_optima.py tells such points apart).
+    def elbo64(out, chunk=16):
+        vals = []
+        for s in range(0, E_SGPR, chunk):
+            part = slice(s, s + chunk)
+            prm = {k: torch.tensor(out["params"][k][part],
+                                   dtype=torch.float64, device="cuda")
+                   for k in engine.HYPER_NAMES}
+            vals.append(sgpr_math.elbo(
+                prm, *(torch.tensor(v[part], dtype=torch.float64,
+                                    device="cuda")
+                       for v in (X, y, mask, out["params"]["inducing_points"],
+                                 out["inducing_mask"])),
+                kernel="Matern32", jitter=1e-6).cpu().numpy())
+        return np.concatenate(vals)
+
     a = hyb["objective"]
-    for route in ("stream", "mega"):
+    for route in cuda_sgpr.ROUTES:
         b = outs[route]["objective"]
+        gap = np.abs(b - elbo64(outs[route]))
+        print(f"  {route}: reported (f32) ELBO vs f64 at its optima: median "
+              f"{np.median(gap):.3e} max {gap.max():.3e}")
+        require((gap <= 5e-2 * np.abs(b)).all(),
+                f"{route}: reported ELBO off f64 by {gap.max()} at expert "
+                f"{int(np.argmax(gap))}")
+        if route == "hybrid":
+            continue
         diff = np.abs(a - b)
         print(f"  ELBO at the optima of hybrid and {route}: max abs diff "
               f"{diff.max():.3e} median {np.median(diff):.3e} (mean |ELBO| "

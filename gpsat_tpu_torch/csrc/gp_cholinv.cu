@@ -1,5 +1,5 @@
-// Batched Cholesky + full triangular inverse of masked SPD matrices, one
-// thread block per matrix.
+// Batched Cholesky + full triangular inverse of masked SPD matrices, spread
+// over many thread blocks per matrix.
 //
 // Replaces gpsat_tpu/ops/pallas_cholinv.py:_cholinv_kernel (:86), called
 // through _cholinv_call (:162) by cholinv_batched (:189):
@@ -9,44 +9,334 @@
 //                 diagonal (A = U^T U)
 //   ld [B]        sum log diag U = 0.5 log det A; NaN or -inf when a pivot is
 //                 not positive, for that matrix only
-//   ws [B][M][M]  workspace for U (upper tiles)
-// M is a multiple of GP_T.
+//   ws [B][M][M]  workspace: A's upper tiles, factored in place into U
+//                 (U_kk included), and U_kj^T in the mirror tile (j, k)
+//                 below the diagonal
+// M is a multiple of CI_T.
 //
-// The factorisation and the W recurrence are gp_factor_invert_from
-// (gp_common.cuh) with the tiles of A read from device memory instead of
-// rebuilt from coordinates.
-// Bound on an H100: FP32 operations (2 M^3 / 3 per matrix against 8 M^2 bytes).
-// One block walks its M/32 tile columns in series, so a batch of a few dozen
-// matrices leaves most SMs idle and the kernel sits far from that bound.
+// Design. A right-looking blocked algorithm on CI_T x CI_T tiles (nt = M /
+// CI_T tile columns); gp_cholinv_launch enqueues a fixed sequence of launches
+// on the caller's stream, every grid (matrices, tiles of the step):
+//   for k = 0 .. nt-1:
+//     diag    U_kk, W_kk = U_kk^{-1} and log diag of the updated tile (k, k),
+//             one block per matrix: 32-row halves factored on one warp in
+//             registers, the coupling blocks on all eight warps
+//     panel   U_kj = U_kk^{-T} A_kj for j > k, a triangular solve
+//                                                         grid B x (nt-k-1)
+//     update  A_ij -= U_ki^T U_kj for k < i <= j          grid B x pairs
+//   for d = 1 .. nt-1:
+//     inverse W_{i,i+d} = -W_ii sum_{i<q<=i+d} U_iq W_{q,i+d}
+//                                                           grid B x (nt-d)
+// (tiles of one offset d need only smaller offsets). Step k reads A itself
+// where step 0 would read ws, so ws needs no copy of A. The update and the
+// inverse are products by gp_mma_pipe<64> (gp_common.cuh): 4x4 micro-tiles,
+// float4 reads, the next 32-deep chunk in flight while this one is
+// multiplied; the panel writes U_kj and its transpose, so that every product
+// reads both operands along rows by cp.async. The sums run in a fixed order
+// with no atomics: a second launch repeats the first bit for bit. FP32 FMA
+// on the CUDA cores.
+// Bound on an H100: FP32 operations (2 M^3 / 3 per matrix against 8 M^2
+// bytes). The critical path is nt diagonal steps, each two 32-column
+// factorisations and two 32 x 32 inverses on single warps, nt - 1 panel
+// solves of 64 dependent rows, and 4 nt - 3 launches.
 #include "gp_common.cuh"
 
-__global__ void __launch_bounds__(GP_THREADS)
-gp_cholinv_kernel(const float* A, float* W, float* ld, float* ws, int M) {
-  extern __shared__ float sm[];
-  const int e = blockIdx.x;
-  const size_t off = (size_t)e * M * M;
-  GpShared s = gp_carve(sm, 0, 0);
-  float* We = W + off;
+#define CI_T 64           // tile edge
+#define CI_LD (CI_T + 1)  // padded row stride of a tile in shared memory
+#define CI_LU (CI_T + 4)  // row stride of U_kk in the panel: float4 reads
 
-  // exact zeros in the tiles below the diagonal, which the recurrence never
-  // writes (consumers contract full rows of W)
-  const int nb = M / GP_T;
-  for (int i = 1; i < nb; ++i)
-    for (int e2 = threadIdx.x; e2 < GP_T * i * GP_T; e2 += GP_THREADS) {
-      const int r = e2 / (i * GP_T), c = e2 % (i * GP_T);
-      We[(size_t)(i * GP_T + r) * M + c] = 0.f;
+// Rows r0 .. r0+31 of the updated tile S (stride CI_LD) factored on one
+// warp, right-looking, with lane j holding column r0 + j (and, with PANEL,
+// column r0 + 32 + j) in registers: U_cc = sqrt(S_cc), U_cj = S_cj / U_cc,
+// then S_ij -= U_ci U_cj for c < i. Writes U (zeros below the diagonal) back
+// and returns sum log U_cc in every lane. A non-positive pivot gives NaN
+// (or -inf), which spreads through this matrix's outputs only.
+template <bool PANEL>
+static __device__ float ci_chol32(float* S, int r0) {
+  const int lane = threadIdx.x & 31;
+  float a[32], b[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    a[i] = S[(r0 + i) * CI_LD + r0 + lane];
+    if (PANEL) b[i] = S[(r0 + i) * CI_LD + r0 + 32 + lane];
+  }
+  float lsum = 0.f;
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    const float piv = sqrtf(__shfl_sync(0xffffffffu, a[c], c));
+    const float u = lane == c ? piv : a[c] / piv;
+    a[c] = u;
+    if (PANEL) b[c] /= piv;
+#pragma unroll
+    for (int i = c + 1; i < 32; ++i) {
+      const float ui = __shfl_sync(0xffffffffu, u, i);
+      a[i] -= ui * u;
+      if (PANEL) b[i] -= ui * b[c];
     }
-  if (threadIdx.x == 0) s.scal[0] = 0.f;
-  __syncthreads();
+    lsum += logf(piv);
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    S[(r0 + i) * CI_LD + r0 + lane] = i <= lane ? a[i] : 0.f;
+    if (PANEL) S[(r0 + i) * CI_LD + r0 + 32 + lane] = b[i];
+  }
+  return lsum;
+}
 
-  const GpMatrixSource src{A + off, M};
-  const float logdet = gp_factor_invert_from(src, s, ws + off, M, We, M, M);
-  if (threadIdx.x == 0) ld[e] = logdet;
+// Wo = U^{-1} of the upper-triangular 32 x 32 block U (both stride CI_LD)
+// on one warp, lane j solving U w = e_j in registers from the bottom row up:
+// once w_i is final, its column of U is taken off the rows above, so the
+// chain through the 32 rows is one multiply and one FMA a row (the
+// reciprocals of the diagonal are formed first, all at once). Exact zeros
+// below the diagonal.
+static __device__ void ci_inv32(const float* U, float* Wo) {
+  const int lane = threadIdx.x & 31;
+  float w[32], rd[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    w[i] = i == lane ? 1.f : 0.f;
+    rd[i] = 1.f / U[i * CI_LD + i];
+  }
+#pragma unroll
+  for (int i = 31; i >= 0; --i) {
+    w[i] = i <= lane ? w[i] * rd[i] : 0.f;
+#pragma unroll
+    for (int q = 0; q < i; ++q) w[q] -= U[q * CI_LD + i] * w[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) Wo[i * CI_LD + lane] = w[i];
+}
+
+// Step (a): factor and invert the updated diagonal tile (k, k) of `src` (A at
+// k = 0, ws after), write U_kk to tile (k, k) of ws, W_kk to W and add its
+// log diag to ld. The tile splits into 32 x 32 blocks: warp 0 factors the
+// top rows (U00, U01), all warps update S11 -= U01^T U01, warp 0 factors S11
+// while warp 1 inverts U00, then W11 and W01 = -W00 (U01 W11).
+__global__ void __launch_bounds__(GP_THREADS)
+gp_cholinv_diag_kernel(const float* src, float* W, float* ws, float* ld,
+                       int M, int k) {
+  __shared__ float S[CI_T * CI_LD];   // the tile, then U_kk; U01 W11 below
+  __shared__ float Wd[CI_T * CI_LD];  // W_kk
+  __shared__ float lsum[2];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int r = tid >> 3, c0 = (tid & 7) * 4;  // a 32 x 32 block, 4 a thread
+  const size_t off = (size_t)blockIdx.x * M * M + (size_t)k * CI_T * (M + 1);
+  for (int e = tid; e < CI_T * CI_T; e += GP_THREADS) {
+    const int i = e / CI_T, j = e % CI_T;
+    S[i * CI_LD + j] = src[off + (size_t)i * M + j];
+    Wd[i * CI_LD + j] = 0.f;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const float v = ci_chol32<true>(S, 0);
+    if (tid == 0) lsum[0] = v;
+  }
+  __syncthreads();
+  {  // S11 -= U01^T U01
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int p = 0; p < 32; ++p) {
+      const float u = S[p * CI_LD + 32 + r];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) t[x] += u * S[p * CI_LD + 32 + c0 + x];
+    }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) S[(32 + r) * CI_LD + 32 + c0 + x] -= t[x];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const float v = ci_chol32<false>(S, 32);
+    if (tid == 0) lsum[1] = v;
+  } else if (warp == 1) {
+    ci_inv32(S, Wd);
+  }
+  __syncthreads();
+  if (warp == 0) ci_inv32(S + 32 * CI_LD + 32, Wd + 32 * CI_LD + 32);
+  if (tid == 0) ld[blockIdx.x] = (k == 0 ? 0.f : ld[blockIdx.x]) + lsum[0] +
+                                 lsum[1];
+  // U_kk for the panel step; the lower-left block of S still holds A's
+  for (int e = tid; e < CI_T * CI_T; e += GP_THREADS) {
+    const int i = e / CI_T, j = e % CI_T;
+    ws[off + (size_t)i * M + j] = i >= 32 && j < 32 ? 0.f : S[i * CI_LD + j];
+  }
+  __syncthreads();
+  {  // U01 W11 into the free lower-left block of S
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int q = 0; q < 32; ++q) {
+      const float u = S[r * CI_LD + 32 + q];
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        t[x] += u * Wd[(32 + q) * CI_LD + 32 + c0 + x];
+    }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) S[(32 + r) * CI_LD + c0 + x] = t[x];
+  }
+  __syncthreads();
+  {  // W01 = -W00 (U01 W11)
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int p = r; p < 32; ++p) {
+      const float w = Wd[r * CI_LD + p];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) t[x] += w * S[(32 + p) * CI_LD + c0 + x];
+    }
+#pragma unroll
+    for (int x = 0; x < 4; ++x) Wd[r * CI_LD + 32 + c0 + x] = -t[x];
+  }
+  __syncthreads();
+  for (int e = tid; e < CI_T * CI_T; e += GP_THREADS) {
+    const int i = e / CI_T, j = e % CI_T;
+    W[off + (size_t)i * M + j] = Wd[i * CI_LD + j];
+  }
+}
+
+// Step (b): U_kj = U_kk^{-T} A_kj by forward substitution down the tile's
+// rows, a triangular solve as LAPACK's trsm does it: multiplied by the
+// explicit W_kk instead, the panel loses the accuracy of a matrix that is
+// near singular in f32 (Kuu at long lengthscales: the collapsed bound came
+// out hundreds of nats high). Into tile (k, j) of ws and its transpose into
+// tile (j, k); j = k + 1 + blockIdx.y. Lane 4c' + g of warp w holds rows
+// 16g .. 16g+15 of column c = 8w + c' in registers; once row r is final,
+// a shuffle hands it to the other three lanes of its column. In place when
+// src is ws: the block reads its whole tile before it writes.
+__global__ void __launch_bounds__(GP_THREADS)
+gp_cholinv_panel_kernel(const float* src, float* ws, int M, int k) {
+  __shared__ __align__(16) float Uk[CI_T * CI_LU];  // U_kk
+  __shared__ float X[CI_T * CI_LD];                  // A_kj, then U_kj
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int c = (tid >> 5) * 8 + (lane >> 2), g = lane & 3;
+  const size_t off = (size_t)blockIdx.x * M * M;
+  const int kT = k * CI_T, jT = (k + 1 + blockIdx.y) * CI_T;
+  for (int e = tid; e < CI_T * CI_T; e += GP_THREADS) {
+    const int i = e / CI_T, j = e % CI_T;
+    Uk[i * CI_LU + j] = ws[off + (size_t)(kT + i) * M + kT + j];
+    X[i * CI_LD + j] = src[off + (size_t)(kT + i) * M + jT + j];
+  }
+  __syncthreads();
+  float x[16];
+#pragma unroll
+  for (int q = 0; q < 16; ++q) x[q] = X[(16 * g + q) * CI_LD + c];
+#pragma unroll
+  for (int r = 0; r < CI_T; ++r) {
+    if (g == (r >> 4)) x[r & 15] /= Uk[r * CI_LU + r];
+    const float xr =
+        __shfl_sync(0xffffffffu, x[r & 15], (lane & ~3) | (r >> 4));
+    const float4* u4 =
+        reinterpret_cast<const float4*>(Uk + r * CI_LU + 16 * g);
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const float4 u = u4[h];
+      const float uh[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int z = 0; z < 4; ++z)
+        if (16 * g + 4 * h + z > r) x[4 * h + z] -= uh[z] * xr;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 16; ++q) X[(16 * g + q) * CI_LD + c] = x[q];
+  __syncthreads();
+  for (int e = tid; e < CI_T * CI_T; e += GP_THREADS) {
+    const int i = e / CI_T, j = e % CI_T;
+    ws[off + (size_t)(kT + i) * M + jT + j] = X[i * CI_LD + j];
+    ws[off + (size_t)(jT + i) * M + kT + j] = X[j * CI_LD + i];
+  }
+}
+
+// Step (c): tile (i, j) of ws <- tile (i, j) of src - U_ki^T U_kj for the
+// blockIdx.y-th pair k < i <= j in row order.
+__global__ void __launch_bounds__(GP_THREADS)
+gp_cholinv_update_kernel(const float* src, float* ws, int M, int k, int nt) {
+  __shared__ __align__(16) float stage[GP_PIPE_STAGE_FLOATS(CI_T)];
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const size_t off = (size_t)blockIdx.x * M * M;
+  int t = blockIdx.y, i = k + 1;
+  while (t >= nt - i) {
+    t -= nt - i;
+    ++i;
+  }
+  const int kT = k * CI_T, iT = i * CI_T, jT = (i + t) * CI_T;
+  float acc[4][4] = {};
+  gp_mma_pipe<CI_T, true, false>(acc, ws + off + (size_t)kT * M + iT, M,
+                                 ws + off + (size_t)kT * M + jT, M, CI_T,
+                                 stage);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const size_t o = off + (size_t)(iT + gp_pipe_at(a, ty)) * M + jT +
+                       gp_pipe_at(b, tx);
+      ws[o] = src[o] - acc[a][b];
+    }
+}
+
+// The inverse at tile offset d: W_ij for i = blockIdx.y, j = i + d, from
+// the U^T tiles below the diagonal of ws and the W tiles of smaller offsets;
+// the block also writes the zeros of tile (j, i).
+__global__ void __launch_bounds__(GP_THREADS)
+gp_cholinv_inverse_kernel(const float* ws, float* W, int M, int d) {
+  __shared__ __align__(16) float stage[GP_PIPE_STAGE_FLOATS(CI_T)];
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const size_t off = (size_t)blockIdx.x * M * M;
+  const int iT = blockIdx.y * CI_T, jT = iT + d * CI_T;
+  for (int e = tid; e < CI_T * CI_T; e += GP_THREADS)
+    W[off + (size_t)(jT + e / CI_T) * M + iT + e % CI_T] = 0.f;
+
+  // acc = sum_{i<q<=j} U_iq W_qj: column block i of ws holds U_iq^T in
+  // rows (i+1)T .. (j+1)T - 1
+  float acc[4][4] = {};
+  gp_mma_pipe<CI_T, true, false>(acc, ws + off + (size_t)(iT + CI_T) * M + iT,
+                                 M, W + off + (size_t)(iT + CI_T) * M + jT, M,
+                                 d * CI_T, stage);
+  // W_ij = -W_ii acc, with W_ii^T and acc in the stage
+  float* WT = stage;               // W_ii^T, swizzled as gp_pipe_park does
+  float* X = stage + CI_T * CI_T;  // X[p][c] = acc
+  const float* Wii = W + off + (size_t)iT * M + iT;
+  float4 v[CI_T / 32];
+  gp_pipe_fetch<CI_T>(v, Wii, M, 0);
+  gp_pipe_park<CI_T>(WT, v);
+  gp_pipe_fetch<CI_T>(v, Wii, M, GP_PIPE_KC);
+  gp_pipe_park<CI_T>(WT + GP_PIPE_KC * CI_T, v);
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    *reinterpret_cast<float4*>(X + (ty * 4 + a) * CI_T + tx * 4) =
+        make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+  __syncthreads();
+  float o[4][4] = {};
+  for (int p = ty * 4; p < CI_T; ++p) {  // W_ii[r][p] = 0 for p < r
+    const float4 w4 = *reinterpret_cast<const float4*>(
+        WT + p * CI_T + ((ty * 4) ^ (p & 28)));
+    const float4 x4 = *reinterpret_cast<const float4*>(X + p * CI_T + tx * 4);
+    const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) o[a][b] += w[a] * x[b];
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      W[off + (size_t)(iT + ty * 4 + a) * M + jT + tx * 4 + b] = -o[a][b];
 }
 
 extern "C" int gp_cholinv_launch(const float* A, float* W, float* ld,
                                  float* ws, int B, int M, void* stream) {
-  const size_t smem = sizeof(float) * gp_smem_floats(0, 0, 0);
-  return gp_launch(gp_cholinv_kernel, B, smem, (cudaStream_t)stream, A, W, ld,
-                   ws, M);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nt = M / CI_T;
+  for (int k = 0; k < nt; ++k) {
+    const float* src = k == 0 ? A : ws;
+    gp_cholinv_diag_kernel<<<B, GP_THREADS, 0, st>>>(src, W, ws, ld, M, k);
+    const int n = nt - k - 1;
+    if (n > 0) {
+      gp_cholinv_panel_kernel<<<dim3(B, n), GP_THREADS, 0, st>>>(src, ws, M,
+                                                                 k);
+      gp_cholinv_update_kernel<<<dim3(B, n * (n + 1) / 2), GP_THREADS, 0,
+                                 st>>>(src, ws, M, k, nt);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  for (int d = 1; d < nt; ++d)
+    gp_cholinv_inverse_kernel<<<dim3(B, nt - d), GP_THREADS, 0, st>>>(ws, W,
+                                                                      M, d);
+  return (int)cudaGetLastError();
 }

@@ -19,6 +19,9 @@
 //     reaches it.
 //   * every product is a GP_T x GP_T output tile accumulated over a
 //     multiple of GP_T by `tile_mma`; each thread owns a 2x2 micro-tile.
+//   * gp_cholinv.cu and the stream2 kernel use the pipelined product
+//     gp_mma_pipe below instead (64x64 or 128x128 outputs, chunks copied
+//     ahead by cp.async).
 //
 // What bounds it on an H100: FP32 operations (the vg kernel does ~N^3 flops
 // per expert against ~20 N bytes of input). This first version runs on the
@@ -173,6 +176,166 @@ static __device__ void tile_mma(float acc[2][2], const float* A, int lda,
   }
 }
 
+// ---------------------------------------------------------------------------
+// gp_mma_pipe: the pipelined tile product of gp_cholinv.cu and the stream2
+// kernel of gp_sgpr_stream.cu.
+//
+// acc (this thread's (T/16) x (T/16) micro-tile of a T x T output, T = 64 or
+// 128, GP_THREADS threads) += sum_{p < K} opA(r, p) * opB(p, c)
+//   opA(r, p) = TA ? A[p*lda + r] : A[r*lda + p]
+//   opB(p, c) = TB ? B[c*ldb + p] : B[p*ldb + c]
+// Thread (ty, tx) = (tid / 16, tid % 16) owns rows gp_pipe_at(i, ty) and
+// columns gp_pipe_at(j, tx): groups of four adjacent rows (columns) 64
+// apart, so that every shared-memory read is a float4 and a warp reads each
+// operand row without bank conflicts.
+// Both operands pass through shared memory in chunks of GP_PIPE_KC = 32
+// depth, two buffers per operand: while chunk c is multiplied, chunk c+1 is
+// in flight. An operand whose rows run along the output edge (opA with TA,
+// opB without TB) is copied by cp.async, 16 bytes a thread, straight into
+// its buffer; the other kind is read as float4 into registers (a warp reads
+// 128 contiguous bytes of each of four rows) before chunk c is multiplied,
+// and written transposed after it, at column r ^ (p & 28) of buffer row p:
+// that swizzle keeps the transposed stores free of bank conflicts and every
+// group of four columns together for the float4 reads. K is a multiple of
+// GP_PIPE_KC; every row start and lda, ldb are 16-byte aligned. `stage`
+// holds GP_PIPE_STAGE_FLOATS(T) floats of shared memory, 16-byte aligned;
+// the block synchronises before it returns, so the stage may be reused at
+// once. FP32 FMA only: the products the kernels need run at full f32
+// precision.
+// ---------------------------------------------------------------------------
+#define GP_PIPE_KC 32                                    // depth of a chunk
+#define GP_PIPE_STAGE_FLOATS(T) (4 * (T) * GP_PIPE_KC)  // 2 buffers x 2 ops
+
+static __device__ __forceinline__ int gp_pipe_at(int i, int t16) {
+  return (i >> 2) * 64 + t16 * 4 + (i & 3);
+}
+
+static __device__ __forceinline__ void gp_cp_async16(float* smem,
+                                                     const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+static __device__ __forceinline__ void gp_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+static __device__ __forceinline__ void gp_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// buf[p][r] <- X[(k0 + p) * ld + r] for p < KC, r < T (rows along the edge)
+template <int T>
+static __device__ __forceinline__ void gp_pipe_copy(float* buf,
+                                                    const float* X, int ld,
+                                                    int k0) {
+#pragma unroll
+  for (int u = 0; u < T / 32; ++u) {
+    const int f = threadIdx.x + u * GP_THREADS;
+    const int p = f / (T / 4), r4 = f % (T / 4);
+    gp_cp_async16(buf + p * T + 4 * r4, X + (size_t)(k0 + p) * ld + 4 * r4);
+  }
+}
+
+// v <- X[r * ld + k0 + 4q .. +3] for r < T, q < KC / 4 (rows across the edge)
+template <int T>
+static __device__ __forceinline__ void gp_pipe_fetch(float4 (&v)[T / 32],
+                                                     const float* X, int ld,
+                                                     int k0) {
+#pragma unroll
+  for (int u = 0; u < T / 32; ++u) {
+    const int f = threadIdx.x + u * GP_THREADS;
+    const int q = f % (GP_PIPE_KC / 4), r = f / (GP_PIPE_KC / 4);
+    v[u] = *reinterpret_cast<const float4*>(X + (size_t)r * ld + k0 + 4 * q);
+  }
+}
+
+// buf[p][r ^ (p & 28)] <- the floats gp_pipe_fetch read (p = 4q + x)
+template <int T>
+static __device__ __forceinline__ void gp_pipe_park(
+    float* buf, const float4 (&v)[T / 32]) {
+#pragma unroll
+  for (int u = 0; u < T / 32; ++u) {
+    const int f = threadIdx.x + u * GP_THREADS;
+    const int q = f % (GP_PIPE_KC / 4), r = f / (GP_PIPE_KC / 4);
+    const int c = r ^ (4 * q);  // (p & 28) = 4q for p = 4q + x
+    buf[(4 * q + 0) * T + c] = v[u].x;
+    buf[(4 * q + 1) * T + c] = v[u].y;
+    buf[(4 * q + 2) * T + c] = v[u].z;
+    buf[(4 * q + 3) * T + c] = v[u].w;
+  }
+}
+
+template <int T, bool TA, bool TB>
+static __device__ void gp_mma_pipe(float (&acc)[T / 16][T / 16],
+                                   const float* A, int lda, const float* B,
+                                   int ldb, int K, float* stage) {
+  static_assert(T == 64 || T == 128, "output tile edge 64 or 128");
+  constexpr int TM = T / 16, KC = GP_PIPE_KC, OP = T * KC;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float4 ra[T / 32], rb[T / 32];
+  const int nc = K / KC;
+
+  // chunk 0 into buffer 0
+  if (TA) gp_pipe_copy<T>(stage, A, lda, 0);
+  else gp_pipe_fetch<T>(ra, A, lda, 0);
+  if (!TB) gp_pipe_copy<T>(stage + OP, B, ldb, 0);
+  else gp_pipe_fetch<T>(rb, B, ldb, 0);
+  gp_cp_async_commit();
+  if (!TA) gp_pipe_park<T>(stage, ra);
+  if (TB) gp_pipe_park<T>(stage + OP, rb);
+
+  for (int c = 0; c < nc; ++c) {
+    const float* As = stage + (c & 1) * 2 * OP;
+    const float* Bs = As + OP;
+    float* An = stage + ((c + 1) & 1) * 2 * OP;
+    float* Bn = An + OP;
+    const bool more = c + 1 < nc;
+    if (more) {
+      // chunk c+1 into the other buffer, which chunk c-1 left before the
+      // closing barrier of the last pass
+      const int k0 = (c + 1) * KC;
+      if (TA) gp_pipe_copy<T>(An, A, lda, k0);
+      else gp_pipe_fetch<T>(ra, A, lda, k0);
+      if (!TB) gp_pipe_copy<T>(Bn, B, ldb, k0);
+      else gp_pipe_fetch<T>(rb, B, ldb, k0);
+      gp_cp_async_commit();
+      gp_cp_async_wait<1>();
+    } else {
+      gp_cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < KC; ++p) {
+      const int sa = TA ? 0 : (p & 28), sb = TB ? (p & 28) : 0;
+      float a[TM], b[TM];
+#pragma unroll
+      for (int h = 0; h < TM / 4; ++h) {
+        const float4 a4 = *reinterpret_cast<const float4*>(
+            As + p * T + ((h * 64 + ty * 4) ^ sa));
+        const float4 b4 = *reinterpret_cast<const float4*>(
+            Bs + p * T + ((h * 64 + tx * 4) ^ sb));
+        a[4 * h + 0] = a4.x; a[4 * h + 1] = a4.y;
+        a[4 * h + 2] = a4.z; a[4 * h + 3] = a4.w;
+        b[4 * h + 0] = b4.x; b[4 * h + 1] = b4.y;
+        b[4 * h + 2] = b4.z; b[4 * h + 3] = b4.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TM; ++j) acc[i][j] += a[i] * b[j];
+    }
+    if (more) {
+      if (!TA) gp_pipe_park<T>(An, ra);
+      if (TB) gp_pipe_park<T>(Bn, rb);
+    }
+    __syncthreads();
+  }
+}
+
 // Upper Cholesky of the GP_T x GP_T tile St in place (St = U^T U), zeros
 // below the diagonal; run by one warp, lane j owning column j. Adds
 // sum log diag U to *logdet. A non-positive pivot gives NaN, which spreads
@@ -224,8 +387,8 @@ static __device__ __forceinline__ float gp_kval(const GpShared& s, int r,
   return v;
 }
 
-// Where gp_factor_invert takes the entries of A from: rebuilt from the
-// staged coordinates (the exact-GPR kernels) ...
+// Where gp_factor_from takes the entries of A from: rebuilt from the staged
+// coordinates.
 template <int KID>
 struct GpKernelSource {
   const GpShared& s;
@@ -236,17 +399,8 @@ struct GpKernelSource {
   }
 };
 
-// ... or read from a row-major matrix in device memory (gp_cholinv.cu).
-struct GpMatrixSource {
-  const float* A;
-  int lda;
-  __device__ __forceinline__ float operator()(int r, int c) const {
-    return A[(size_t)r * lda + c];
-  }
-};
-
 // Blocked left-looking Cholesky A = U^T U, the factor half of
-// gp_factor_invert_from: tile row k of U is W_kk^T (A_k. - sum_{p<k} U_pk^T
+// gp_factor_invert: tile row k of U is W_kk^T (A_k. - sum_{p<k} U_pk^T
 // U_p.), with the diagonal tile factored and inverted by one warp. `src(r, c)`
 // gives the entry of A (only upper tiles are asked for). U is an Np x Np
 // row-major view with leading dimension ldu; only its upper tiles are written
@@ -374,26 +528,16 @@ static __device__ void gp_invert_offdiag(const GpShared& s, const float* U,
 }
 
 // Factor (gp_factor_from) and full inverse W = U^{-1} (gp_invert_offdiag) of
-// the matrix `src` gives. U and W are Np x Np row-major views with leading
-// dimensions ldu and ldw. Returns sum log diag U in every thread.
-template <typename Source>
-static __device__ float gp_factor_invert_from(const Source& src,
-                                              const GpShared& s, float* U,
-                                              int ldu, float* W, int ldw,
-                                              int Np) {
-  gp_factor_from(src, s, U, ldu, Np, GpStoreDiagW{s, W, ldw});
-  gp_invert_offdiag(s, U, ldu, W, ldw, Np);
-  return s.scal[0];
-}
-
-// The exact-GPR form: A is the masked noisy kernel matrix of the staged
-// expert, U and W share one workspace of leading dimension ld.
+// the masked noisy kernel matrix of the staged expert; U and W share one
+// workspace of leading dimension ld. Returns sum log diag U in every thread.
 template <int KID>
 static __device__ float gp_factor_invert(const GpShared& s, float* U,
                                          float* W, int ld, int D, int Np,
                                          float sf2, float noise) {
   const GpKernelSource<KID> src{s, D, Np, sf2, noise};
-  return gp_factor_invert_from(src, s, U, ld, W, ld, Np);
+  gp_factor_from(src, s, U, ld, Np, GpStoreDiagW{s, W, ld});
+  gp_invert_offdiag(s, U, ld, W, ld, Np);
+  return s.scal[0];
 }
 
 // t1 = W^T y and alpha = W t1 = A^{-1} y into shared memory.

@@ -4,6 +4,18 @@
 //
 // Replaces the shared pieces of gpsat_tpu/ops/pallas_sgpr.py:
 // _build_kuf_at_tiles (:600) and the dot_general tiles of its kernels.
+//
+// Two tile products serve these kernels. gs_mma64 (64x64 outputs, 4x4
+// micro-tiles, float4 shared-memory reads) loads a 32-deep chunk, waits for
+// it and multiplies it: nothing overlaps the global loads. stream1 and the
+// four product kernels of gp_sgpr_vg.cu run on it. stream2 runs on
+// gp_mma_pipe<128> of gp_common.cuh: 128x128 outputs with 8x8 micro-tiles
+// (4 float4 reads per 64 FMAs instead of 2 per 16, so each operand byte
+// feeds twice the FMAs), operands staged without bank conflicts, the next
+// 32-deep chunk in flight by cp.async (or in registers, for an operand read
+// across its rows) while this one is multiplied. Both are FP32 FMA on the
+// CUDA cores and bound by it: the products are ~M^2 N flops against ~M^2
+// bytes per expert.
 #pragma once
 
 #include "gp_common.cuh"
@@ -37,10 +49,12 @@ static inline __host__ __device__ int gs_smem_floats(int D, int Mp) {
   return gp_smem_floats(0, 0, 0) + (D + 2) * Mp + (D + 3) * GS_PW;
 }
 
-static __device__ __forceinline__ GsShared gs_carve(const GpShared& s, int D,
+// The fields from `base` on: gs_smem_floats(D, Mp) - gp_smem_floats(0, 0, 0)
+// floats.
+static __device__ __forceinline__ GsShared gs_carve(float* base, int D,
                                                     int Mp) {
   GsShared g;
-  g.zs = s.xs;  // first float after the tiles and scalars
+  g.zs = base;
   g.zm = g.zs + D * Mp;
   g.vec = g.zm + Mp;
   g.xs = g.vec + Mp;
@@ -117,13 +131,15 @@ static __device__ void gs_mma64(float acc[4][4], const float* A, int lda,
   }
 }
 
-// pan [Mp][GS_PW] <- Kuf of the staged panel, then A~ = W_u^T Kuf in place.
-template <int KID>
-static __device__ void gs_build_at_panel(const GpShared& s, const GsShared& g,
+// pan [Mp][GS_PW] <- Kuf of the staged panel, then A~ = W_u^T Kuf in place,
+// by T x T output tiles: gs_mma64 for T = GS_T, gp_mma_pipe<T> for T = 128
+// (`stage` is the product's shared memory).
+template <int KID, int T>
+static __device__ void gs_build_at_panel(float* stage, const GsShared& g,
                                          const float* Wu, float* pan, int Mp,
                                          int D, float sf2) {
-  const int tid = threadIdx.x;
-  const int r0 = (tid >> 4) * 4, c0 = (tid & 15) * 4;
+  constexpr int TM = T / 16;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const float scale = gp_scale<KID>();
   for (int i = tid; i < Mp * GS_PW; i += GP_THREADS) {
     const int m = i / GS_PW, n = i % GS_PW;
@@ -135,18 +151,23 @@ static __device__ void gs_build_at_panel(const GpShared& s, const GsShared& g,
     pan[i] = sf2 * gp_phi<KID>(r2 * scale) * (g.zm[m] * g.mx[n]);
   }
   __syncthreads();
-  for (int iT = Mp - GS_T; iT >= 0; iT -= GS_T)
-    for (int cs = 0; cs < GS_PW; cs += GS_T) {
+  for (int iT = Mp - T; iT >= 0; iT -= T)
+    for (int cs = 0; cs < GS_PW; cs += T) {
       // A~[iT + r][cs + c] = sum_{q < iT + T} W_u[q][iT + r] Kuf[q][cs + c];
       // the rows it overwrites are read by no later tile row
-      float acc[4][4] = {};
-      gs_mma64<true, false>(acc, Wu + iT, Mp, pan + cs, GS_PW, iT + GS_T,
-                            s.As);
+      float acc[TM][TM] = {};
+      if constexpr (T == GS_T)
+        gs_mma64<true, false>(acc, Wu + iT, Mp, pan + cs, GS_PW, iT + T,
+                              stage);
+      else
+        gp_mma_pipe<T, true, false>(acc, Wu + iT, Mp, pan + cs, GS_PW,
+                                    iT + T, stage);
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < TM; ++a)
 #pragma unroll
-        for (int b = 0; b < 4; ++b)
-          pan[(size_t)(iT + r0 + a) * GS_PW + cs + c0 + b] = acc[a][b];
+        for (int b = 0; b < TM; ++b)
+          pan[(size_t)(iT + gp_pipe_at(a, ty)) * GS_PW + cs +
+              gp_pipe_at(b, tx)] = acc[a][b];
     }
   __syncthreads();
 }

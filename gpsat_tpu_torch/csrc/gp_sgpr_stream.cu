@@ -23,19 +23,26 @@
 //            reduced elementwise against sf2 phi and sf2 F q2_j (never the
 //            rank-1 expansion, which cancels at coincident points).
 //
-// Design. The data axis is cut into panels of GS_PW columns. Block (e, s)
-// of a (B, S) grid walks panels s, s+S, ... of expert e in series: it
-// builds the Kuf panel [Mp x GS_PW] in its slice of a device-memory
+// Design. The data axis is cut into panels of GS_PW columns. For each panel
+// a block builds the Kuf panel [Mp x GS_PW] in its slice of a device-memory
 // workspace, turns it into A~ in place (tile rows in descending order: row
-// i of W_u^T Kuf reads only Kuf rows <= i), and accumulates its own partial
-// outputs. A second kernel adds the S partials of each expert in a fixed
-// order, so a run repeats itself bit for bit: there are no atomics. Every
-// product is a GS_T x GS_T output tile by gs_mma64: each thread owns a 4x4
-// micro-tile and reads its operands from shared memory 16 bytes at a time.
+// i of W_u^T Kuf reads only Kuf rows <= i), and adds its own partial
+// outputs. A second kernel adds the partials of each expert in a fixed
+// order, so a run repeats itself bit for bit: there are no atomics.
+// stream1: block (e, s) of a (B, S) grid walks panels s, s+S, ... of expert
+// e; every product is a GS_T x GS_T tile by gs_mma64 (4x4 micro-tiles).
+// stream2: a grid of G blocks (one per SM, from the wrapper: the 8x8
+// micro-tiles take ~220 registers a thread, so a second block of 256 threads
+// would not fit beside it) takes the (expert, panel) items in turn, one
+// partial per item, so every SM gets the same number of panels within one
+// and the workspace is G panel pairs (G x 2 Mp GS_PW floats: 69 MB at
+// G = 132, Mp = 512) whatever B and N; every product is a 128 x 128 tile by
+// gp_mma_pipe (the next chunk in flight while one is multiplied), so P is
+// read once per panel and A~ and v Mp / 128 times.
 // Bound on an H100: FP32 operations against ~6 M^2 bytes per expert. stream1
 // needs 2 M^2 N (the triangular W_u^T Kuf and the symmetric A~ A~^T, M^2 N
 // each), stream2 4 M^2 N (A~ again, the dense P A~ at 2 M^2 N, the
-// triangular W_u v). The tile products run on the CUDA cores, below the peak.
+// triangular W_u v). The tile products run on the CUDA cores in FP32.
 #include "gp_sgpr_common.cuh"
 
 template <int KID>
@@ -55,7 +62,7 @@ gp_sgpr_stream1_kernel(const float* xt, const float* yt, const float* zt,
   float* Bp = partB + slot * Mp * Mp;
   float* pan = ws + slot * Mp * GS_PW;
   GpShared s = gp_carve(sm, 0, 0);
-  GsShared g = gs_carve(s, D, Mp);
+  GsShared g = gs_carve(s.xs, D, Mp);
 
   gs_stage_inducing(g, zt + (size_t)e * 8 * Mp, pe, D, Mp);
   for (int i = tid; i < Mp; i += GP_THREADS) g.vec[i] = 0.f;
@@ -66,7 +73,7 @@ gp_sgpr_stream1_kernel(const float* xt, const float* yt, const float* zt,
   for (int n0 = sp * GS_PW; n0 < Np; n0 += S * GS_PW) {
     gs_stage_panel(g, xt + (size_t)e * 8 * Np, yt + (size_t)e * Np, pe, D, Np,
                    n0);
-    gs_build_at_panel<KID>(s, g, Wue, pan, Mp, D, sf2);
+    gs_build_at_panel<KID, GS_T>(s.As, g, Wue, pan, Mp, D, sf2);
 
     // a~ += A~ ybar and |A~|_F^2, one warp per row
     for (int m = warp; m < Mp; m += GP_THREADS / 32) {
@@ -133,37 +140,52 @@ gp_sgpr_stream1_reduce(const float* partB, const float* partA,
   }
 }
 
+// stream2's block: GS2_T x GS2_T output tiles through gp_mma_pipe, whose
+// stage is the front of the dynamic shared memory.
+#define GS2_T 128
+static_assert(GS_PW == GS2_T, "a stream2 panel is one output tile wide");
+
+static inline __host__ __device__ int gs2_smem_floats(int D, int Mp) {
+  return GP_PIPE_STAGE_FLOATS(GS2_T) + 32 + (D + 2) * Mp + (D + 3) * GS_PW;
+}
+
+// Grid G: block b takes the items w = b, b + G, ...
+// of the B x (Np / GS_PW) (expert, panel) pairs in turn and writes each
+// item's partial lanes to partG [B][Np / GS_PW][8]; ws holds G panel pairs.
 template <int KID>
-__global__ void __launch_bounds__(GP_THREADS)
+__global__ void __launch_bounds__(GP_THREADS, 1)
 gp_sgpr_stream2_kernel(const float* xt, const float* yt, const float* zt,
                        const float* p, const float* Wu, const float* Pm,
-                       const float* dd, float* partG, float* ws, int Np,
-                       int Mp, int D) {
+                       const float* dd, float* partG, float* ws, int B,
+                       int Np, int Mp, int D) {
+  constexpr int TM = GS2_T / 16;
   extern __shared__ __align__(16) float sm[];
-  const int e = blockIdx.x, sp = blockIdx.y, S = gridDim.y;
-  const int tid = threadIdx.x;
-  const int r0 = (tid >> 4) * 4, c0 = (tid & 15) * 4;
-  const size_t slot = (size_t)e * S + sp;
-  const float* pe = p + (size_t)e * 8;
-  const float sf2 = pe[5], inv_s2 = 1.f / pe[6];
-  const float* Wue = Wu + (size_t)e * Mp * Mp;
-  const float* Pe = Pm + (size_t)e * Mp * Mp;
-  float* pan = ws + slot * 2 * Mp * GS_PW;  // Kuf, then A~
-  float* vpan = pan + (size_t)Mp * GS_PW;   // v
-  GpShared s = gp_carve(sm, 0, 0);
-  GsShared g = gs_carve(s, D, Mp);
+  float* stage = sm;
+  float* red = sm + GP_PIPE_STAGE_FLOATS(GS2_T);
+  const GsShared g = gs_carve(red + 32, D, Mp);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int np = Np / GS_PW;
+  float* pan = ws + (size_t)blockIdx.x * 2 * Mp * GS_PW;  // Kuf, then A~
+  float* vpan = pan + (size_t)Mp * GS_PW;                 // v
   const float scale = gp_scale<KID>();
 
-  gs_stage_inducing(g, zt + (size_t)e * 8 * Mp, pe, D, Mp);
-  for (int i = tid; i < Mp; i += GP_THREADS) g.vec[i] = dd[(size_t)e * Mp + i];
-  __syncthreads();
-
-  float gls[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  float gsf2 = 0.f;
-  for (int n0 = sp * GS_PW; n0 < Np; n0 += S * GS_PW) {
+  int staged = -1;
+  for (int w = blockIdx.x; w < B * np; w += gridDim.x) {
+    const int e = w / np, n0 = (w % np) * GS_PW;
+    const float* pe = p + (size_t)e * 8;
+    const float sf2 = pe[5], inv_s2 = 1.f / pe[6];
+    const float* Wue = Wu + (size_t)e * Mp * Mp;
+    const float* Pe = Pm + (size_t)e * Mp * Mp;
+    if (e != staged) {
+      __syncthreads();
+      gs_stage_inducing(g, zt + (size_t)e * 8 * Mp, pe, D, Mp);
+      for (int i = tid; i < Mp; i += GP_THREADS)
+        g.vec[i] = dd[(size_t)e * Mp + i];
+      staged = e;
+    }
     gs_stage_panel(g, xt + (size_t)e * 8 * Np, yt + (size_t)e * Np, pe, D, Np,
                    n0);
-    gs_build_at_panel<KID>(s, g, Wue, pan, Mp, D, sf2);
+    gs_build_at_panel<KID, GS2_T>(stage, g, Wue, pan, Mp, D, sf2);
 
     // beta = ybar / s2 - A~^T dd / s2^2
     for (int n = tid; n < GS_PW; n += GP_THREADS) {
@@ -174,69 +196,83 @@ gp_sgpr_stream2_kernel(const float* xt, const float* yt, const float* zt,
     __syncthreads();
 
     // v = P A~ + dd beta^T
-    for (int iT = 0; iT < Mp; iT += GS_T)
-      for (int cs = 0; cs < GS_PW; cs += GS_T) {
-        float acc[4][4] = {};
-        gs_mma64<false, false>(acc, Pe + (size_t)iT * Mp, Mp, pan + cs, GS_PW,
-                               Mp, s.As);
+    for (int iT = 0; iT < Mp; iT += GS2_T) {
+      float acc[TM][TM] = {};
+      gp_mma_pipe<GS2_T, false, false>(acc, Pe + (size_t)iT * Mp, Mp, pan,
+                                       GS_PW, Mp, stage);
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < TM; ++a) {
+        const int m = iT + gp_pipe_at(a, ty);
 #pragma unroll
-          for (int b = 0; b < 4; ++b)
-            vpan[(size_t)(iT + r0 + a) * GS_PW + cs + c0 + b] =
-                acc[a][b] + g.vec[iT + r0 + a] * g.beta[cs + c0 + b];
-      }
-    __syncthreads();
-
-    // Kbar_uf = -W_u v / s2 tile by tile (row i of W_u reads v rows >= i),
-    // reduced on the fly against the kernel derivatives
-    for (int iT = 0; iT < Mp; iT += GS_T)
-      for (int cs = 0; cs < GS_PW; cs += GS_T) {
-        float acc[4][4] = {};
-        gs_mma64<false, false>(acc, Wue + (size_t)iT * Mp + iT, Mp,
-                               vpan + (size_t)iT * GS_PW + cs, GS_PW, Mp - iT,
-                               s.As);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int m = iT + r0 + a;
-#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            const int n = cs + c0 + b;
-            const float kbar = -acc[a][b] * inv_s2;
-            float q2[5];
-            float r2 = 0.f;
-            for (int d = 0; d < 5; ++d) {
-              if (d < D) {
-                const float df = g.zs[d * Mp + m] - g.xs[d * GS_PW + n];
-                q2[d] = df * df * scale;
-                r2 += q2[d];
-              } else {
-                q2[d] = 0.f;
-              }
-            }
-            const float mm = g.zm[m] * g.mx[n];
-            gsf2 += kbar * (sf2 * gp_phi<KID>(r2) * mm);
-            const float qf = kbar * (sf2 * gp_phi_grad<KID>(r2) * mm);
-#pragma unroll
-            for (int d = 0; d < 5; ++d) gls[d] += qf * q2[d];
-          }
+        for (int h = 0; h < TM / 4; ++h) {
+          const int n = h * 64 + tx * 4;
+          const float dm = g.vec[m];
+          *reinterpret_cast<float4*>(vpan + (size_t)m * GS_PW + n) =
+              make_float4(acc[a][4 * h + 0] + dm * g.beta[n + 0],
+                          acc[a][4 * h + 1] + dm * g.beta[n + 1],
+                          acc[a][4 * h + 2] + dm * g.beta[n + 2],
+                          acc[a][4 * h + 3] + dm * g.beta[n + 3]);
         }
       }
+    }
     __syncthreads();
-  }
 
-  gsf2 = gp_block_sum(gsf2, s.red);
-  for (int d = 0; d < 5; ++d) gls[d] = gp_block_sum(gls[d], s.red);
-  if (tid == 0) {
-    float* o = partG + slot * 8;
-    o[0] = 0.f;
-    for (int d = 0; d < 5; ++d) o[1 + d] = d < D ? gls[d] : 0.f;
-    o[6] = gsf2;
-    o[7] = 0.f;
+    // Kbar_uf = -W_u v / s2 tile by tile (row i of W_u reads v rows >= i);
+    // each tile goes through the (idle) stage and is reduced elementwise
+    // against the kernel derivatives in a loop over its entries
+    float gls[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    float gsf2 = 0.f;
+    for (int iT = 0; iT < Mp; iT += GS2_T) {
+      float acc[TM][TM] = {};
+      gp_mma_pipe<GS2_T, false, false>(acc, Wue + (size_t)iT * Mp + iT, Mp,
+                                       vpan + (size_t)iT * GS_PW, GS_PW,
+                                       Mp - iT, stage);
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int h = 0; h < TM / 4; ++h)
+          *reinterpret_cast<float4*>(stage + gp_pipe_at(a, ty) * GS_PW +
+                                     h * 64 + tx * 4) =
+              make_float4(acc[a][4 * h + 0], acc[a][4 * h + 1],
+                          acc[a][4 * h + 2], acc[a][4 * h + 3]);
+      __syncthreads();
+      for (int e = tid; e < GS2_T * GS_PW; e += GP_THREADS) {
+        const int m = iT + e / GS_PW, n = e % GS_PW;
+        const float kbar = -stage[e] * inv_s2;
+        float q2[5];
+        float r2 = 0.f;
+        for (int d = 0; d < 5; ++d) {
+          if (d < D) {
+            const float df = g.zs[d * Mp + m] - g.xs[d * GS_PW + n];
+            q2[d] = df * df * scale;
+            r2 += q2[d];
+          } else {
+            q2[d] = 0.f;
+          }
+        }
+        const float mm = g.zm[m] * g.mx[n];
+        gsf2 += kbar * (sf2 * gp_phi<KID>(r2) * mm);
+        const float qf = kbar * (sf2 * gp_phi_grad<KID>(r2) * mm);
+#pragma unroll
+        for (int d = 0; d < 5; ++d) gls[d] += qf * q2[d];
+      }
+      __syncthreads();
+    }
+
+    gsf2 = gp_block_sum(gsf2, red);
+    for (int d = 0; d < 5; ++d) gls[d] = gp_block_sum(gls[d], red);
+    if (tid == 0) {
+      float* o = partG + (size_t)w * 8;
+      o[0] = 0.f;
+      for (int d = 0; d < 5; ++d) o[1 + d] = d < D ? gls[d] : 0.f;
+      o[6] = gsf2;
+      o[7] = 0.f;
+    }
   }
 }
 
-// gout [B][8] <- the S partials of each expert, added in order.
+// gout [B][8] <- the S partials of each expert, added in order (stream2:
+// one partial per panel).
 __global__ void gp_sgpr_stream2_reduce(const float* partG, float* gout, int B,
                                        int S) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -268,22 +304,23 @@ extern "C" int gp_sgpr_stream1_launch(const float* xt, const float* yt,
   return (int)cudaGetLastError();
 }
 
-// partG [B][S][8] and ws [B][S][2][Mp][GS_PW] are scratch from the wrapper.
+// partG [B][Np / GS_PW][8] and ws [G][2][Mp][GS_PW] are scratch from the
+// wrapper; G is the number of blocks.
 extern "C" int gp_sgpr_stream2_launch(const float* xt, const float* yt,
                                       const float* zt, const float* p,
                                       const float* Wu, const float* Pm,
                                       const float* dd, float* gout,
                                       float* partG, float* ws, int B, int Np,
-                                      int Mp, int D, int S, int kernel_id,
+                                      int Mp, int D, int G, int kernel_id,
                                       void* stream) {
-  const size_t smem = sizeof(float) * gs_smem_floats(D, Mp);
+  const size_t smem = sizeof(float) * gs2_smem_floats(D, Mp);
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(B, S);
+  const dim3 grid(G);
   int code;
   GP_DISPATCH(gp_sgpr_stream2_kernel, xt, yt, zt, p, Wu, Pm, dd, partG, ws,
-              Np, Mp, D)
+              B, Np, Mp, D)
   if (code != 0) return code;
-  gp_sgpr_stream2_reduce<<<(B * 8 + 255) / 256, 256, 0, st>>>(partG, gout, B,
-                                                             S);
+  gp_sgpr_stream2_reduce<<<(B * 8 + 255) / 256, 256, 0, st>>>(
+      partG, gout, B, Np / GS_PW);
   return (int)cudaGetLastError();
 }

@@ -9,9 +9,9 @@
 //   zt [B][8][Mp]  inducing coordinates, float mask in row 7
 //   p  [B][8]      ls_0..ls_{D-1}, sf2 @5, s2 @6
 //   out [B][8]     0: value, 1..D: d/dlog ls_j, 6: d/dlog sf2, 7: d/ds2
-//   ws             scratch of gp_sgpr_vg_ws_floats(B, Mp, S) floats
-// Np is a multiple of 128 and Mp of 128; S is the data-axis split of the two
-// streamed passes.
+//   ws             scratch of gp_sgpr_vg_ws_floats(B, Np, Mp, S, G) floats
+// Np is a multiple of 128 and Mp of 128; S is the data-axis split of the
+// first streamed pass, G the number of blocks of the second.
 //
 // Design. The TPU kernel walks its phases in one program because its grid
 // runs in order on one core with every factor resident in VMEM. Here one
@@ -27,7 +27,7 @@
 //   P6  gv_t1/gv_p/gv_t2/gv_kbar_uu  the M^3-sized products and the Kbar_uu
 //                           reductions, one 64x64 tile per block
 //                                                    grid (B, Mp/64, Mp/64)
-//   P7  gp_sgpr_stream2_launch  the Kbar_uf reductions       grid (B, S)
+//   P7  gp_sgpr_stream2_launch  the Kbar_uf reductions       grid (G)
 //       gv_finish_kernel    the lanes of out
 // P = I - B^{-1} is formed as B^{-1} Bsum = W_B (W_B^T Bsum) (eigenvalues in
 // [0, 1), no subtraction from I). The three W_u-sandwiched terms of Kbar_uu
@@ -57,7 +57,7 @@ extern "C" int gp_sgpr_stream2_launch(const float* xt, const float* yt,
                                       const float* Wu, const float* Pm,
                                       const float* dd, float* gout,
                                       float* partG, float* ws, int B, int Np,
-                                      int Mp, int D, int S, int kernel_id,
+                                      int Mp, int D, int G, int kernel_id,
                                       void* stream);
 
 // P1: one block per row of Kuu. The other two routes build Kuu in torch
@@ -340,8 +340,9 @@ struct GvWorkspace {
   size_t floats;            // the whole
 };
 
-static GvWorkspace gv_layout(int B, int Mp, int S) {
+static GvWorkspace gv_layout(int B, int Np, int Mp, int S, int G) {
   const size_t b = B, m = Mp, s = S, m2 = m * m, nt = m / GS_T;
+  const size_t np = Np / GS_PW, g = G;
   GvWorkspace w;
   size_t q = 0;
   w.A0 = q; q += b * m2;
@@ -358,27 +359,29 @@ static GvWorkspace gv_layout(int B, int Mp, int S) {
   w.scal = q; q += b * 4;
   w.gout = q; q += b * 8;
   w.partU = q; q += b * nt * nt * 8;
+  q = (q + 63) / 64 * 64;  // gp_mma_pipe reads the panels by 16-byte copies
   w.stream = q;
   // pass 1: partB [B][S][Mp][Mp], partA [B][S][Mp], partT [B][S],
-  // panels [B][S][Mp][GS_PW]; pass 2: partG [B][S][8], panels
-  // [B][S][2][Mp][GS_PW], over the same floats
+  // panels [B][S][Mp][GS_PW]; pass 2: partG [B][Np / GS_PW][8], panels
+  // [G][2][Mp][GS_PW], over the same floats
   const size_t s1 = b * s * (m2 + m + 1 + m * GS_PW);
-  const size_t s2 = b * s * (8 + 2 * m * GS_PW);
+  const size_t s2 = b * np * 8 + g * 2 * m * GS_PW;
   w.floats = q + (s1 > s2 ? s1 : s2);
   return w;
 }
 
-extern "C" long long gp_sgpr_vg_ws_floats(int B, int Mp, int S) {
-  return (long long)gv_layout(B, Mp, S).floats;
+extern "C" long long gp_sgpr_vg_ws_floats(int B, int Np, int Mp, int S,
+                                          int G) {
+  return (long long)gv_layout(B, Np, Mp, S, G).floats;
 }
 
 extern "C" int gp_sgpr_vg_launch(const float* xt, const float* yt,
                                  const float* zt, const float* p, float* out,
                                  float* ws, int B, int Np, int Mp, int D,
-                                 int S, float jitter, int kernel_id,
+                                 int S, int G, float jitter, int kernel_id,
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const GvWorkspace w = gv_layout(B, Mp, S);
+  const GvWorkspace w = gv_layout(B, Np, Mp, S, G);
   const size_t b = B, m = Mp, s = S, m2 = m * m;
   const int nt = Mp / GS_T;
   const dim3 rows(B, Mp), tiles(B, nt, nt);
@@ -427,9 +430,9 @@ extern "C" int gp_sgpr_vg_launch(const float* xt, const float* yt,
   }
   {
     float* partG = ws + w.stream;
-    float* pan = partG + b * s * 8;
+    float* pan = partG + b * (Np / GS_PW) * 8;
     code = gp_sgpr_stream2_launch(xt, yt, zt, p, Wu, Uw, dd, gout, partG, pan,
-                                  B, Np, Mp, D, S, kernel_id, stream);
+                                  B, Np, Mp, D, G, kernel_id, stream);
     if (code != 0) return code;
   }
   gv_finish_kernel<<<(B * 8 + 255) / 256, 256, 0, st>>>(scal, partU, gout,

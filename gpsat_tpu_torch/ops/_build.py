@@ -43,11 +43,11 @@ _SIGNATURES = {
     # xt, yt, zt, p, Wu, Bsum, at, trA2, partB, partA, partT, ws,
     # B, Np, Mp, D, S, kernel_id, stream
     "gp_sgpr_stream1_launch": [_P] * 12 + [_I] * 6 + [_P],
-    # xt, yt, zt, p, Wu, P, dd, gout, partG, ws, B, Np, Mp, D, S, kernel_id,
+    # xt, yt, zt, p, Wu, P, dd, gout, partG, ws, B, Np, Mp, D, G, kernel_id,
     # stream
     "gp_sgpr_stream2_launch": [_P] * 10 + [_I] * 6 + [_P],
-    # xt, yt, zt, p, out, ws, B, Np, Mp, D, S, jitter, kernel_id, stream
-    "gp_sgpr_vg_launch": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _P],
+    # xt, yt, zt, p, out, ws, B, Np, Mp, D, S, G, jitter, kernel_id, stream
+    "gp_sgpr_vg_launch": [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _P],
 }
 
 
@@ -133,8 +133,8 @@ def load_library():
         fn.restype = ctypes.c_int
     lib.gp_error_string.argtypes = [ctypes.c_int]
     lib.gp_error_string.restype = ctypes.c_char_p
-    # B, Mp, S -> floats of scratch gp_sgpr_vg_launch needs
-    lib.gp_sgpr_vg_ws_floats.argtypes = [_I, _I, _I]
+    # B, Np, Mp, S, G -> floats of scratch gp_sgpr_vg_launch needs
+    lib.gp_sgpr_vg_ws_floats.argtypes = [_I] * 5
     lib.gp_sgpr_vg_ws_floats.restype = ctypes.c_longlong
     return lib
 

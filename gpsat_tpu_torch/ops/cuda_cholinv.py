@@ -1,9 +1,10 @@
 """Batched Cholesky + full triangular inverse for Hopper (torch counterpart
 of gpsat_tpu/ops/pallas_cholinv.py).
 
-``csrc/gp_cholinv.cu`` replaces ``pallas_cholinv._cholinv_kernel``: one thread
-block per matrix runs the blocked factorisation and the W = U^{-1} recurrence
-of ``csrc/gp_common.cuh`` on a masked SPD matrix read from device memory.
+``csrc/gp_cholinv.cu`` replaces ``pallas_cholinv._cholinv_kernel``: a
+right-looking blocked factorisation on 64 x 64 tiles and the W = U^{-1}
+recurrence by tile offset, a fixed sequence of launches with many blocks per
+matrix (4 M/64 - 3 launches per call, counted here as one).
 
     W  [B, M, M]  U^{-1} (upper triangular, exact zeros below; A = U^T U)
     ld [B]        sum(log diag U) = 0.5 * logdet A
@@ -53,7 +54,7 @@ def _cholinv_launch(A):
     ld = torch.empty(B, dtype=torch.float32, device=A.device)
     if B == 0:
         return W, ld
-    ws = torch.empty_like(A)
+    ws = torch.empty_like(A)  # U's upper tiles and their transposes
     lib = _build.load_library()
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream

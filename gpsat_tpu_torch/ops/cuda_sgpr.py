@@ -309,11 +309,20 @@ def _stream2_plain(xt, yt, zt, p, wu, pmat, dd, kernel, D):
 
 
 def _splits(B, Np, device):
-    """Data-axis splits per expert: enough blocks for two per SM, at most one
-    per panel."""
+    """stream1's data-axis splits per expert: enough blocks for two per SM,
+    at most one per panel."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     panels = -(-Np // _PANEL)
     return max(1, min(panels, (2 * sms) // max(B, 1), _MAX_SPLITS))
+
+
+def _stream2_blocks(B, Np, device):
+    """stream2's grid: one block per SM (its 256 threads need most of an
+    SM's registers) takes the B x panels (expert, panel) items in turn, at
+    most one block per item. The workspace is two panels per block, so it
+    does not grow with B or N."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(B * (-(-Np // _PANEL)), sms))
 
 
 def _check_stream(xt, yt, zt, p, wu, kernel, D):
@@ -354,20 +363,22 @@ def _stream1_launch(xt, yt, zt, p, wu, kernel, D):
 def _stream2_launch(xt, yt, zt, p, wu, pmat, dd, kernel, D):
     _check_stream(xt, yt, zt, p, wu, kernel, D)
     _check_cuda(pmat, dd)
+    if wu.data_ptr() % 16 or pmat.data_ptr() % 16:
+        raise ValueError("sgpr_stream2: W_u and P must start on 16 bytes")
     B, _, Np = xt.shape
     Mp = zt.shape[2]
     dev = xt.device
-    S = _splits(B, Np, dev)
+    G = _stream2_blocks(B, Np, dev)
     gout = torch.empty(B, 8, dtype=torch.float32, device=dev)
-    partG = torch.empty(B, S, 8, dtype=torch.float32, device=dev)
-    ws = torch.empty(B, S, 2, Mp, _PANEL, dtype=torch.float32, device=dev)
+    partG = torch.empty(B, Np // _PANEL, 8, dtype=torch.float32, device=dev)
+    ws = torch.empty(G, 2, Mp, _PANEL, dtype=torch.float32, device=dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.gp_sgpr_stream2_launch(
             xt.data_ptr(), yt.data_ptr(), zt.data_ptr(), p.data_ptr(),
             wu.data_ptr(), pmat.data_ptr(), dd.data_ptr(), gout.data_ptr(),
-            partG.data_ptr(), ws.data_ptr(), B, Np, Mp, D, S,
+            partG.data_ptr(), ws.data_ptr(), B, Np, Mp, D, G,
             _KERNEL_IDS[kernel], stream)
     _build.check(lib, code, "gp_sgpr_stream2_launch")
     sgpr_stream2.launches += 1
@@ -507,15 +518,15 @@ def _mega_launch(xt, yt, zt, p, kernel, D, jitter):
     out = torch.empty(B, 8, dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    S = _splits(B, Np, dev)
+    S, G = _splits(B, Np, dev), _stream2_blocks(B, Np, dev)
     lib = _build.load_library()
-    ws = torch.empty(lib.gp_sgpr_vg_ws_floats(B, Mp, S), dtype=torch.float32,
-                     device=dev)
+    ws = torch.empty(lib.gp_sgpr_vg_ws_floats(B, Np, Mp, S, G),
+                     dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.gp_sgpr_vg_launch(
             xt.data_ptr(), yt.data_ptr(), zt.data_ptr(), p.data_ptr(),
-            out.data_ptr(), ws.data_ptr(), B, Np, Mp, D, S, float(jitter),
+            out.data_ptr(), ws.data_ptr(), B, Np, Mp, D, S, G, float(jitter),
             _KERNEL_IDS[kernel], stream)
     _build.check(lib, code, "gp_sgpr_vg_launch")
     sgpr_vg_mega.launches += 1

@@ -11,9 +11,10 @@ Each sweep runs three times: a cold run (first use of every kernel), a warm
 run timed on the host clock, and a warm run under torch.profiler. Prints one
 JSON object
 per sweep: wall times, pool iterations and slots, launches of each fused
-kernel, peak device memory, the device time of each CUDA kernel by name, and
-the device's busy share of the profiled wall time. Needs a CUDA device;
-numbers are this run's.
+kernel, peak device memory, the device time of each CUDA kernel by name and
+summed per port kernel (`port_kernels_ms`: cholinv and stream2 enqueue
+several), and the device's busy share of the profiled wall time. Needs a
+CUDA device; numbers are this run's.
 """
 
 import argparse
@@ -80,6 +81,28 @@ def _device_times(prof):
     return out
 
 
+# The CUDA kernels of each port kernel (a launch entry may enqueue several),
+# by the prefix of their names.
+_FAMILIES = {"nlml_vg": "gp_vg_", "posterior_predict": "gp_predict_",
+             "nlml_value": "gp_value_", "cholinv": "gp_cholinv_",
+             "sgpr_stream1": "gp_sgpr_stream1_",
+             "sgpr_stream2": "gp_sgpr_stream2_", "sgpr_vg_mega": "gv_"}
+
+
+def _by_family(kernels):
+    """{port kernel: {"ms", "calls"}} summed over the CUDA kernels whose
+    names carry its prefix."""
+    out = {}
+    for key, (us, calls) in kernels.items():
+        head = key.split("(")[0].split()   # drop "void " and the arguments
+        name = head[-1] if head else key
+        for fam, prefix in _FAMILIES.items():
+            if name.startswith(prefix):
+                ms, n = out.get(fam, (0.0, 0))
+                out[fam] = (ms + us * 1e-3, n + calls)
+    return {fam: {"ms": ms, "calls": n} for fam, (ms, n) in out.items()}
+
+
 def profile(engine, E, N, P, D, slots):
     """Cold, warm and profiled sweeps of `engine` on the bench workload."""
     X, y, mask, Xs = workload(E, N, P, D)
@@ -125,6 +148,7 @@ def profile(engine, E, N, P, D, slots):
         "cuda_kernel_launches": sum(c for _, c in kernels.values()),
         "top_kernels_ms": {k[:80]: {"ms": us * 1e-3, "calls": c}
                            for k, (us, c) in top},
+        "port_kernels_ms": _by_family(kernels),
     }
 
 

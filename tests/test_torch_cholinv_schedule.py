@@ -1,0 +1,152 @@
+"""The launch schedule of csrc/gp_cholinv.cu, replayed tile by tile in f64 on
+the CPU and held against the JAX package's cholinv_batched (Pallas, interpret
+mode). The CUDA kernels run only on the card; this replay reads and writes
+the same tiles of the same buffers in the same launch order (scratch and
+output start as NaN, so a tile read before its producer ran shows), which
+catches an error in the order of the steps before a card run does."""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+T = 64  # CI_T in csrc/gp_cholinv.cu
+
+
+def _diag(S):
+    """Step (a) on [B, T, T] tiles: the kernel's unscaled right-looking
+    column loop, then U = S_rc / sqrt(S_rr) and W = U^{-1}. A non-positive
+    pivot gives NaN (sqrt) or inf, as on the card. Returns (U, W, log diag)."""
+    S = S.clone()
+    for c in range(T - 1):
+        S[:, c + 1:, c + 1:] -= (S[:, c, c + 1:, None] * S[:, c, None, c + 1:]
+                                 / S[:, c, c, None, None])
+    piv = torch.sqrt(torch.diagonal(S, dim1=1, dim2=2))
+    U = torch.triu(S, 1) / piv[:, :, None] + torch.diag_embed(piv)
+    eye = torch.eye(T, dtype=S.dtype).expand_as(U)
+    return U, torch.linalg.solve_triangular(U, eye, upper=True).triu(), \
+        torch.log(piv).sum(dim=1)
+
+
+def replay(A):
+    """(W, ld) of [B, M, M] masked SPD matrices by gp_cholinv_launch's
+    sequence, in A's dtype: for each k diag, panel, update; then the inverse
+    by tile offset. Tile (i, j) of a buffer X is X[:, iT:(i+1)T, jT:(j+1)T]."""
+    B, M, _ = A.shape
+    nt = M // T
+    ws = torch.full_like(A, float("nan"))
+    W = torch.full_like(A, float("nan"))
+    ld = torch.full((B,), float("nan"), dtype=A.dtype)
+
+    def t(i, j):
+        return slice(i * T, (i + 1) * T), slice(j * T, (j + 1) * T)
+
+    for k in range(nt):
+        src = A if k == 0 else ws
+        Ukk, Wkk, lk = _diag(src[(slice(None), *t(k, k))])
+        ws[(slice(None), *t(k, k))] = Ukk
+        W[(slice(None), *t(k, k))] = Wkk
+        ld = lk if k == 0 else ld + lk
+        # one block a tile, a triangular solve with U_kk from ws: every block
+        # reads before any writes
+        panels = {j: torch.linalg.solve_triangular(
+            ws[(slice(None), *t(k, k))].mT, src[(slice(None), *t(k, j))],
+            upper=False) for j in range(k + 1, nt)}
+        for j, U in panels.items():
+            ws[(slice(None), *t(k, j))] = U
+            ws[(slice(None), *t(j, k))] = U.mT
+        updates = {(i, j): src[(slice(None), *t(i, j))]
+                   - ws[(slice(None), *t(k, i))].mT
+                   @ ws[(slice(None), *t(k, j))]
+                   for i in range(k + 1, nt) for j in range(i, nt)}
+        for (i, j), v in updates.items():
+            ws[(slice(None), *t(i, j))] = v
+    for d in range(1, nt):
+        out = {}
+        for i in range(nt - d):
+            j = i + d
+            rows = slice((i + 1) * T, (j + 1) * T)
+            acc = (ws[:, rows, i * T:(i + 1) * T].mT
+                   @ W[:, rows, j * T:(j + 1) * T])
+            out[i] = -W[(slice(None), *t(i, i))] @ acc
+        for i, v in out.items():
+            W[(slice(None), *t(i, i + d))] = v
+            W[(slice(None), *t(i + d, i))] = 0.0
+    return W, ld
+
+
+def make_spd(M, m_valid, seed=0):
+    rng = np.random.default_rng(seed)
+    A = np.zeros((len(m_valid), M, M))
+    for b, mv in enumerate(m_valid):
+        G = rng.standard_normal((mv, mv))
+        A[b, :mv, :mv] = G @ G.T / mv + np.eye(mv) * 0.5
+        A[b, range(mv, M), range(mv, M)] = 1.0
+    return A
+
+
+@pytest.mark.parametrize("M", [128, 384])
+def test_schedule_matches_jax_interpret(M):
+    """W rtol 2e-3 atol 2e-3, ld rtol 1e-4 atol 1e-4 (the tolerances of
+    tests/test_pallas_cholinv.py); exact zeros below the diagonal; the input
+    is never written."""
+    from gpsat_tpu.ops.pallas_cholinv import cholinv_batched as jax_cholinv
+    A = make_spd(M, (M, M - 56, M // 2, M - 6, 1), seed=M)
+    At = torch.tensor(A)
+    W, ld = replay(At)
+    assert torch.equal(At, torch.tensor(A))   # the input is never written
+    Wj, ldj = jax_cholinv(jnp.asarray(A, jnp.float32), interpret=True)
+    np.testing.assert_allclose(W.numpy(), np.asarray(Wj), rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_allclose(ld.numpy(), np.asarray(ldj), rtol=1e-4,
+                               atol=1e-4)
+    assert (W.numpy()[:, np.tril(np.ones((M, M)), -1).astype(bool)] == 0).all()
+
+
+def test_schedule_bad_pivot_in_a_later_tile_column_stays_in_its_matrix():
+    """A negative diagonal entry in tile column 2 of matrix 1: its ld is not
+    finite, the other matrices come out as they do without it."""
+    A = torch.tensor(make_spd(256, (256, 200, 180), seed=3))
+    A[1, 150, 150] = -1.0
+    W, ld = replay(A)
+    assert not torch.isfinite(ld[1])
+    Wg, ldg = replay(A[[0, 2]])
+    assert torch.isfinite(Wg).all() and torch.isfinite(ldg).all()
+    np.testing.assert_allclose(W[[0, 2]].numpy(), Wg.numpy(), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(ld[[0, 2]].numpy(), ldg.numpy(), rtol=1e-12)
+
+
+def test_schedule_in_f32_keeps_a_near_singular_kuu():
+    """Kuu of the bench `sgpr` recipe (M=500 padded to 512, jitter 1e-6,
+    Matern32) at a point where an f32 sweep stopped (expert 98, lengthscales
+    8.11 and 13.09): near singular in f32. Replayed in f32, the schedule
+    stays finite, and the trace term of the collapsed bound from its W,
+    |W^T Kuf|_F^2 / (2 s2), is within 1 nat of f64 (torch.linalg's f32
+    factorisation: 0.13 nats). Panels multiplied by the explicit W_kk, not
+    solved with U_kk, break down here: hundreds of nats or NaN."""
+    from gpsat_tpu_torch.ops import cuda_sgpr
+    from gpsat_tpu_torch.profile_sweep import bench_sgpr_engine, workload
+    e, D = 98, 3
+    X, y, mask, _ = workload(128, 2000, 1, D)
+    Z, zmask = bench_sgpr_engine(D, 500, device="cpu")._build_inducing(
+        X, mask)
+    prm = {"lengthscales": torch.tensor([[8.109089, 13.092942, 1.0]]),
+           "kernel_variance": torch.tensor([0.485842]),
+           "likelihood_variance": torch.tensor([0.002596])}
+    Xp, Zp, m, zm, ls, _, sf2, s2, ybar = cuda_sgpr._prepare(
+        prm, torch.tensor(X[e:e + 1]), torch.tensor(y[e:e + 1]),
+        torch.tensor(mask[e:e + 1], dtype=torch.float32),
+        torch.tensor(Z[e:e + 1]),
+        torch.tensor(zmask[e:e + 1], dtype=torch.float32))
+    Kuu = cuda_sgpr._kuu(Zp / ls[:, None, :], zm, sf2, "Matern32", 1e-6)[0]
+    xt, _, zt, p = cuda_sgpr._pack_stream(Xp, m, ybar, Zp, zm, ls, sf2, s2)
+    Kuf = cuda_sgpr._kuf_at_plain(xt, zt, p, torch.eye(Zp.shape[1])[None],
+                                  "Matern32", D)[0].double()
+    W, ld = replay(Kuu)
+    assert torch.isfinite(W).all() and torch.isfinite(ld).all()
+    exact = torch.linalg.solve_triangular(
+        torch.linalg.cholesky(Kuu.double()), Kuf, upper=False)
+    err = 0.5 * float((W.double().mT @ Kuf).square().sum()
+                      - exact.square().sum()) / float(s2)
+    assert abs(err) < 1.0, err

@@ -226,22 +226,28 @@ def test_engine_on_the_card_matches_the_host_engine(dev):
 # ---------------------------------------------------------------------------
 
 def make_spd(dev, M, m_valid, seed=0):
-    """Masked, well-conditioned SPD matrices (identity on the padded block)."""
-    rng = np.random.default_rng(seed)
-    A = np.zeros((len(m_valid), M, M))
+    """Masked, well-conditioned SPD matrices (identity on the padded block),
+    made on the card in f64 from a seeded generator."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.zeros(len(m_valid), M, M, dtype=torch.float64, device=dev)
     for b, mv in enumerate(m_valid):
-        G = rng.standard_normal((mv, mv))
-        A[b, :mv, :mv] = G @ G.T / mv + np.eye(mv) * 0.5
+        G = torch.randn(mv, mv, generator=gen, dtype=torch.float64,
+                        device=dev)
+        A[b, :mv, :mv] = G @ G.T / mv + 0.5 * torch.eye(
+            mv, dtype=torch.float64, device=dev)
         A[b, range(mv, M), range(mv, M)] = 1.0
-    return torch.as_tensor(A, dtype=torch.float32, device=dev)
+    return A.float()
 
 
+@pytest.mark.parametrize("B", [1, 48, 130])
 @pytest.mark.parametrize("M", [128, 512, 1024])
-def test_cholinv_matches_plain(dev, M):
+def test_cholinv_matches_plain(dev, M, B):
     """W rtol 2e-3 atol 2e-3, ld rtol 1e-4 atol 1e-4; exact zeros below the
-    diagonal; the input is left as it was."""
+    diagonal; the input is left as it was; a second launch repeats the first
+    bit for bit."""
     from gpsat_tpu_torch.ops import cuda_cholinv
-    A = make_spd(dev, M, (M, M - 56, M // 2, M - 6, 1))
+    sizes = (M, M - 56, M // 2, M - 6, 1)
+    A = make_spd(dev, M, [sizes[b % len(sizes)] for b in range(B)], seed=B)
     keep = A.clone()
     before = cuda_cholinv.cholinv_batched.launches
     W, ld = cuda_cholinv.cholinv_batched(A)
@@ -253,12 +259,18 @@ def test_cholinv_matches_plain(dev, M):
                                atol=1e-4)
     assert (W.tril(-1) == 0).all()
     assert torch.equal(A, keep)
+    W2, ld2 = cuda_cholinv.cholinv_batched(A)
+    assert torch.equal(W, W2) and torch.equal(ld, ld2)
 
 
-def test_cholinv_non_pd_and_gate(dev):
+@pytest.mark.parametrize("M,bad", [(256, 70), (512, 300)])
+def test_cholinv_non_pd_and_gate(dev, M, bad):
+    """A negative pivot (in tile column 1 at M=256, in a later tile column at
+    M=512) spoils ld of its own matrix only; the others match the plain
+    version."""
     from gpsat_tpu_torch.ops import cuda_cholinv
-    A = make_spd(dev, 256, (256, 200, 128))
-    A[1, 70, 70] = -1.0
+    A = make_spd(dev, M, (M, M - 56, M // 2))
+    A[1, bad, bad] = -1.0
     W, ld = cuda_cholinv.cholinv_batched(A)
     assert not torch.isfinite(ld[1])
     Wp, ldp = cuda_cholinv.cholinv_batched_plain(A[[0, 2]])
@@ -302,13 +314,14 @@ def make_sgpr_case(dev, B=4, N=300, M=100, D=3, seed=0):
     ("Exponential", 230, 100, 3), ("Matern32", 70, 30, 1),
     ("Matern32", 1100, 260, 2), ("Matern32", 150, 128, 5),
     ("Matern32", 2000, 1000, 2)])
-def test_stream_kernels_match_plain(dev, kernel, N, M, D):
+@pytest.mark.parametrize("B", [1, 4, 48])
+def test_stream_kernels_match_plain(dev, kernel, N, M, D, B):
     """stream1 and stream2 against their plain versions on the same packed
-    inputs (ragged N, M over one, three and eight 128-tiles, D=1 and 5):
-    rtol 2e-3, atol 2e-3 of the largest entry; a second launch repeats the
-    first bit for bit."""
+    inputs (ragged N, M over one, three and eight 128-tiles, D=1 and 5, one
+    to 48 experts): rtol 2e-3, atol 2e-3 of the largest entry; a second
+    launch repeats the first bit for bit."""
     from gpsat_tpu_torch.ops import cuda_cholinv, cuda_sgpr
-    params, X, y, m, Z, zm = make_sgpr_case(dev, N=N, M=M, D=D, seed=N)
+    params, X, y, m, Z, zm = make_sgpr_case(dev, B=B, N=N, M=M, D=D, seed=N)
     Xp, Zp, mf, zmf, ls, _, sf2, s2, ybar = cuda_sgpr._prepare(
         params, X, y, m, Z, zm)
     jitter = 1e-6 if M < 1000 else 1e-3

@@ -5,16 +5,18 @@
 
 ROOT (default: this checkout) is a directory holding a `gpsat_tpu_torch`
 package; its kernels are built there and timed at the widths the bench
-sweeps give them (vg: 345 experts, predict: 512, N=400, P=400; cholinv,
-stream1, stream2: 48 experts, N=2000, M=500 padded to 512; Matern32, D=3,
-fixed random hyperparameters), by CUDA events over 20 warm launches. Prints
-one JSON line. To compare two commits, unpack each with `git archive` and
-run this script on both in one job, in the order parent, change, change,
-parent: two jobs may land on two cards.
+sweeps give them (vg: 345 experts, predict and value: 512, N=400, P=400;
+cholinv, stream1, stream2: 48 experts, N=2000, M=500 padded to 512, and
+cholinv at the fill's 128 as well; Matern32, D=3, fixed random
+hyperparameters), by CUDA events over 20 warm launches. Prints one JSON line
+with the card's name and power limit. To compare two commits, unpack each
+with `git archive` and run this script on both in one job, in the order
+parent, change, change, parent: two jobs may land on two cards.
 """
 
 import json
 import os
+import subprocess
 import sys
 
 ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
@@ -59,8 +61,12 @@ def main():
                 "kernel_variance": t(rng.uniform(0.05, 0.5, E)),
                 "likelihood_variance": t(rng.uniform(0.01, 0.1, E))}
 
-    out = {"tree": ROOT, "card": torch.cuda.get_device_name(0)}
-    for name, E in (("vg", 345), ("predict", 512)):
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
+    out = {"tree": ROOT, "card": smi[0] if smi else
+           torch.cuda.get_device_name(0)}
+    for name, E in (("vg", 345), ("predict", 512), ("value", 512)):
         X, y, mask, Xs = workload(E, 400, 400, D, seed=3)
         xt, yt, p, _, _ = cuda_gpr._pack(hyper(E), t(X), t(y),
                                          t(mask.astype(np.float32)), 1e-6)
@@ -68,29 +74,38 @@ def main():
         if name == "vg":
             out[name] = cuda_ms(
                 lambda: cuda_gpr._vg_launch(xt, yt, p, kernel, D))
+        elif name == "value":
+            out[name] = cuda_ms(
+                lambda: cuda_gpr._value_launch(xt, yt, p, kernel, D))
         else:
             out[name] = cuda_ms(
                 lambda: cuda_gpr._predict_launch(xt, yt, p, xs, kernel, D))
 
-    B = 48
-    X, y, mask, _ = workload(B, 2000, 1, D, seed=3)
-    Z, zmask = bench_sgpr_engine(D, 500)._build_inducing(X, mask)
-    Xp, Zp, m, zm, ls, _, sf2, s2, ybar = cuda_sgpr._prepare(
-        hyper(B), t(X), t(y), t(mask), t(Z), t(zmask))
-    Kuu = cuda_sgpr._kuu(Zp / ls[:, None, :], zm, sf2, kernel, 1e-6)[0]
-    xt, yt, zt, p = cuda_sgpr._pack_stream(Xp, m, ybar, Zp, zm, ls, sf2, s2)
-    W_u, _ = cuda_cholinv.cholinv_batched(Kuu)
-    Bsum, at, _ = cuda_sgpr.sgpr_stream1(xt, yt, zt, p, W_u, kernel, D)
-    Bm = Bsum + torch.eye(Bsum.shape[1], device="cuda")
-    W_B, _ = cuda_cholinv.cholinv_batched(Bm)
-    c = (at[:, None, :] @ W_B)[:, 0, :]
-    dd = (W_B @ c[:, :, None])[:, :, 0].contiguous()
-    Pm = (W_B @ (W_B.mT @ Bsum)).contiguous()
-    out["cholinv"] = cuda_ms(lambda: cuda_cholinv.cholinv_batched(Bm))
-    out["sgpr_stream1"] = cuda_ms(
-        lambda: cuda_sgpr.sgpr_stream1(xt, yt, zt, p, W_u, kernel, D))
-    out["sgpr_stream2"] = cuda_ms(
-        lambda: cuda_sgpr.sgpr_stream2(xt, yt, zt, p, W_u, Pm, dd, kernel, D))
+    for B in (48, 128):
+        X, y, mask, _ = workload(B, 2000, 1, D, seed=3)
+        Z, zmask = bench_sgpr_engine(D, 500)._build_inducing(X, mask)
+        Xp, Zp, m, zm, ls, _, sf2, s2, ybar = cuda_sgpr._prepare(
+            hyper(B), t(X), t(y), t(mask), t(Z), t(zmask))
+        Kuu = cuda_sgpr._kuu(Zp / ls[:, None, :], zm, sf2, kernel, 1e-6)[0]
+        xt, yt, zt, p = cuda_sgpr._pack_stream(Xp, m, ybar, Zp, zm, ls, sf2,
+                                               s2)
+        W_u, _ = cuda_cholinv.cholinv_batched(Kuu)
+        Bsum, at, _ = cuda_sgpr.sgpr_stream1(xt, yt, zt, p, W_u, kernel, D)
+        Bm = Bsum + torch.eye(Bsum.shape[1], device="cuda")
+        if B == 128:   # the fill's width: cholinv only
+            out["cholinv_128"] = cuda_ms(
+                lambda: cuda_cholinv.cholinv_batched(Bm))
+            continue
+        W_B, _ = cuda_cholinv.cholinv_batched(Bm)
+        c = (at[:, None, :] @ W_B)[:, 0, :]
+        dd = (W_B @ c[:, :, None])[:, :, 0].contiguous()
+        Pm = (W_B @ (W_B.mT @ Bsum)).contiguous()
+        out["cholinv"] = cuda_ms(lambda: cuda_cholinv.cholinv_batched(Bm))
+        out["sgpr_stream1"] = cuda_ms(
+            lambda: cuda_sgpr.sgpr_stream1(xt, yt, zt, p, W_u, kernel, D))
+        out["sgpr_stream2"] = cuda_ms(
+            lambda: cuda_sgpr.sgpr_stream2(xt, yt, zt, p, W_u, Pm, dd, kernel,
+                                           D))
     print(json.dumps(out))
     return 0
 
