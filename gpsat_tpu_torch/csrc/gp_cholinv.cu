@@ -27,14 +27,19 @@
 //   for d = 1 .. nt-1:
 //     inverse W_{i,i+d} = -W_ii sum_{i<q<=i+d} U_iq W_{q,i+d}
 //                                                           grid B x (nt-d)
-// (tiles of one offset d need only smaller offsets). Step k reads A itself
-// where step 0 would read ws, so ws needs no copy of A. The update and the
-// inverse are products by gp_mma_pipe<64> (gp_common.cuh): 4x4 micro-tiles,
-// float4 reads, the next 32-deep chunk in flight while this one is
-// multiplied; the panel writes U_kj and its transpose, so that every product
-// reads both operands along rows by cp.async. The sums run in a fixed order
-// with no atomics: a second launch repeats the first bit for bit. FP32 FMA
-// on the CUDA cores.
+// (tiles of one offset d need only smaller offsets). Step 0 reads A itself
+// where a later step reads ws, so ws needs no copy of A. The three step
+// kernels take where step 0 finds A as a template parameter: a matrix in
+// device memory (CiMatrix, gp_cholinv_launch) or, for the exact-GPR
+// gradient of gp_vg.cu, the masked noisy kernel matrix rebuilt entry by
+// entry from the coordinates (CiKernel, gp_cholinv_kernel_launch), so that
+// K is never stored: step 0 reads every upper tile of A exactly once. The
+// update and the inverse are products by gp_mma_pipe<64> (gp_common.cuh):
+// 4x4 micro-tiles, float4 reads, the next 32-deep chunk in flight while this
+// one is multiplied; the panel writes U_kj and its transpose, so that every
+// product reads both operands along rows by cp.async. The sums run in a
+// fixed order with no atomics: a second launch repeats the first bit for
+// bit. FP32 FMA on the CUDA cores.
 // Bound on an H100: FP32 operations (2 M^3 / 3 per matrix against 8 M^2
 // bytes). The critical path is nt diagonal steps, each two 32-column
 // factorisations and two 32 x 32 inverses on single warps, nt - 1 panel
@@ -44,6 +49,40 @@
 #define CI_T 64           // tile edge
 #define CI_LD (CI_T + 1)  // padded row stride of a tile in shared memory
 #define CI_LU (CI_T + 4)  // row stride of U_kk in the panel: float4 reads
+
+// Where a step finds entry (r, c) of matrix b: a [B][M][M] matrix in device
+// memory (A at step 0 of gp_cholinv_launch, ws at every later step) ...
+struct CiMatrix {
+  const float* A;
+  int M;
+  __device__ __forceinline__ float operator()(int b, int r, int c) const {
+    return A[((size_t)b * M + r) * M + c];
+  }
+};
+
+// ... or the masked noisy kernel matrix of expert b, rebuilt from xs
+// [B][8][M] (coordinates already divided by the lengthscales in rows
+// 0..D-1, mask in row 7) and p [B][8] (sf2 @5, noise @6) as gp_vg.cu's
+// gradient pass rebuilds it: sf2 phi(r2) m_r m_c, plus m_r (noise - 1) + 1
+// on the diagonal (a padded row factors to the identity).
+template <int KID>
+struct CiKernel {
+  const float* xs;
+  const float* p;
+  int M, D;
+  __device__ __forceinline__ float operator()(int b, int r, int c) const {
+    const float* x = xs + (size_t)b * 8 * M;
+    float r2 = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float dd = x[d * M + r] - x[d * M + c];
+      r2 += dd * dd * gp_scale<KID>();
+    }
+    const float mr = x[7 * M + r];
+    float v = p[(size_t)b * 8 + 5] * gp_phi<KID>(r2) * (mr * x[7 * M + c]);
+    if (r == c) v += mr * (p[(size_t)b * 8 + 6] - 1.f) + 1.f;
+    return v;
+  }
+};
 
 // Rows r0 .. r0+31 of the updated tile S (stride CI_LD) factored on one
 // warp, right-looking, with lane j holding column r0 + j (and, with PANEL,
@@ -112,9 +151,10 @@ static __device__ void ci_inv32(const float* U, float* Wo) {
 // log diag to ld. The tile splits into 32 x 32 blocks: warp 0 factors the
 // top rows (U00, U01), all warps update S11 -= U01^T U01, warp 0 factors S11
 // while warp 1 inverts U00, then W11 and W01 = -W00 (U01 W11).
+template <typename Src>
 __global__ void __launch_bounds__(GP_THREADS)
-gp_cholinv_diag_kernel(const float* src, float* W, float* ws, float* ld,
-                       int M, int k) {
+gp_cholinv_diag_kernel(const Src src, float* W, float* ws, float* ld, int M,
+                       int k) {
   __shared__ float S[CI_T * CI_LD];   // the tile, then U_kk; U01 W11 below
   __shared__ float Wd[CI_T * CI_LD];  // W_kk
   __shared__ float lsum[2];
@@ -123,7 +163,7 @@ gp_cholinv_diag_kernel(const float* src, float* W, float* ws, float* ld,
   const size_t off = (size_t)blockIdx.x * M * M + (size_t)k * CI_T * (M + 1);
   for (int e = tid; e < CI_T * CI_T; e += GP_THREADS) {
     const int i = e / CI_T, j = e % CI_T;
-    S[i * CI_LD + j] = src[off + (size_t)i * M + j];
+    S[i * CI_LD + j] = src(blockIdx.x, k * CI_T + i, k * CI_T + j);
     Wd[i * CI_LD + j] = 0.f;
   }
   __syncthreads();
@@ -197,8 +237,9 @@ gp_cholinv_diag_kernel(const float* src, float* W, float* ws, float* ld,
 // 16g .. 16g+15 of column c = 8w + c' in registers; once row r is final,
 // a shuffle hands it to the other three lanes of its column. In place when
 // src is ws: the block reads its whole tile before it writes.
+template <typename Src>
 __global__ void __launch_bounds__(GP_THREADS)
-gp_cholinv_panel_kernel(const float* src, float* ws, int M, int k) {
+gp_cholinv_panel_kernel(const Src src, float* ws, int M, int k) {
   __shared__ __align__(16) float Uk[CI_T * CI_LU];  // U_kk
   __shared__ float X[CI_T * CI_LD];                  // A_kj, then U_kj
   const int tid = threadIdx.x, lane = tid & 31;
@@ -208,7 +249,7 @@ gp_cholinv_panel_kernel(const float* src, float* ws, int M, int k) {
   for (int e = tid; e < CI_T * CI_T; e += GP_THREADS) {
     const int i = e / CI_T, j = e % CI_T;
     Uk[i * CI_LU + j] = ws[off + (size_t)(kT + i) * M + kT + j];
-    X[i * CI_LD + j] = src[off + (size_t)(kT + i) * M + jT + j];
+    X[i * CI_LD + j] = src(blockIdx.x, kT + i, jT + j);
   }
   __syncthreads();
   float x[16];
@@ -242,8 +283,9 @@ gp_cholinv_panel_kernel(const float* src, float* ws, int M, int k) {
 
 // Step (c): tile (i, j) of ws <- tile (i, j) of src - U_ki^T U_kj for the
 // blockIdx.y-th pair k < i <= j in row order.
+template <typename Src>
 __global__ void __launch_bounds__(GP_THREADS)
-gp_cholinv_update_kernel(const float* src, float* ws, int M, int k, int nt) {
+gp_cholinv_update_kernel(const Src src, float* ws, int M, int k, int nt) {
   __shared__ __align__(16) float stage[GP_PIPE_STAGE_FLOATS(CI_T)];
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const size_t off = (size_t)blockIdx.x * M * M;
@@ -261,9 +303,8 @@ gp_cholinv_update_kernel(const float* src, float* ws, int M, int k, int nt) {
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
-      const size_t o = off + (size_t)(iT + gp_pipe_at(a, ty)) * M + jT +
-                       gp_pipe_at(b, tx);
-      ws[o] = src[o] - acc[a][b];
+      const int r = iT + gp_pipe_at(a, ty), c = jT + gp_pipe_at(b, tx);
+      ws[off + (size_t)r * M + c] = src(blockIdx.x, r, c) - acc[a][b];
     }
 }
 
@@ -318,20 +359,27 @@ gp_cholinv_inverse_kernel(const float* ws, float* W, int M, int d) {
       W[off + (size_t)(iT + ty * 4 + a) * M + jT + tx * 4 + b] = -o[a][b];
 }
 
-extern "C" int gp_cholinv_launch(const float* A, float* W, float* ld,
-                                 float* ws, int B, int M, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+// Step k's three launches, reading the updated tiles through `src`.
+template <typename Src>
+static void ci_step(const Src& src, float* W, float* ld, float* ws, int B,
+                    int M, int k, cudaStream_t st) {
+  const int nt = M / CI_T, n = nt - k - 1;
+  gp_cholinv_diag_kernel<<<B, GP_THREADS, 0, st>>>(src, W, ws, ld, M, k);
+  if (n > 0) {
+    gp_cholinv_panel_kernel<<<dim3(B, n), GP_THREADS, 0, st>>>(src, ws, M, k);
+    gp_cholinv_update_kernel<<<dim3(B, n * (n + 1) / 2), GP_THREADS, 0, st>>>(
+        src, ws, M, k, nt);
+  }
+}
+
+// The launch sequence: step 0 reads A through `src`, later steps ws.
+template <typename Src>
+static int ci_launch(const Src& src, float* W, float* ld, float* ws, int B,
+                     int M, cudaStream_t st) {
   const int nt = M / CI_T;
   for (int k = 0; k < nt; ++k) {
-    const float* src = k == 0 ? A : ws;
-    gp_cholinv_diag_kernel<<<B, GP_THREADS, 0, st>>>(src, W, ws, ld, M, k);
-    const int n = nt - k - 1;
-    if (n > 0) {
-      gp_cholinv_panel_kernel<<<dim3(B, n), GP_THREADS, 0, st>>>(src, ws, M,
-                                                                 k);
-      gp_cholinv_update_kernel<<<dim3(B, n * (n + 1) / 2), GP_THREADS, 0,
-                                 st>>>(src, ws, M, k, nt);
-    }
+    if (k == 0) ci_step(src, W, ld, ws, B, M, k, st);
+    else ci_step(CiMatrix{ws, M}, W, ld, ws, B, M, k, st);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -339,4 +387,37 @@ extern "C" int gp_cholinv_launch(const float* A, float* W, float* ld,
     gp_cholinv_inverse_kernel<<<dim3(B, nt - d), GP_THREADS, 0, st>>>(ws, W,
                                                                       M, d);
   return (int)cudaGetLastError();
+}
+
+extern "C" int gp_cholinv_launch(const float* A, float* W, float* ld,
+                                 float* ws, int B, int M, void* stream) {
+  return ci_launch(CiMatrix{A, M}, W, ld, ws, B, M, (cudaStream_t)stream);
+}
+
+// cholinv of the masked noisy kernel matrices of scaled exact-GPR inputs
+// (xs [B][8][M], p [B][8], see CiKernel), never stored: W = U^{-1} and
+// ld = 0.5 log det K, with ws as gp_cholinv_launch's.
+extern "C" int gp_cholinv_kernel_launch(const float* xs, const float* p,
+                                        float* W, float* ld, float* ws, int B,
+                                        int M, int D, int kernel_id,
+                                        void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (kernel_id) {
+    case GP_MATERN12:
+      return ci_launch(CiKernel<GP_MATERN12>{xs, p, M, D}, W, ld, ws, B, M,
+                       st);
+    case GP_MATERN32:
+      return ci_launch(CiKernel<GP_MATERN32>{xs, p, M, D}, W, ld, ws, B, M,
+                       st);
+    case GP_MATERN52:
+      return ci_launch(CiKernel<GP_MATERN52>{xs, p, M, D}, W, ld, ws, B, M,
+                       st);
+    case GP_RBF:
+      return ci_launch(CiKernel<GP_RBF>{xs, p, M, D}, W, ld, ws, B, M, st);
+    case GP_EXPONENTIAL:
+      return ci_launch(CiKernel<GP_EXPONENTIAL>{xs, p, M, D}, W, ld, ws, B,
+                       M, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

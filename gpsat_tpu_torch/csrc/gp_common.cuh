@@ -5,9 +5,10 @@
 // Replaces the shared pieces of gpsat_tpu/ops/pallas_gpr.py: the correlation
 // functions _phi / _phi_grad (:64, :80) and the blocked factor + inverse
 // routine _factor_tile_and_invert (:157) together with the off-diagonal
-// W = U^{-1} block recurrence that _vg_kernel and _predict_kernel both run.
+// W = U^{-1} block recurrence that _predict_kernel runs.
 //
-// Layout (per expert, one thread block of GP_THREADS threads):
+// Layout of the one-block-per-expert routines (predict and value, one thread
+// block of GP_THREADS threads per expert):
 //   * the wrapper hands each block a workspace in device memory, row-major
 //     with leading dimension `ld`: U (A = U^T U, upper tiles only) at column
 //     offset 0 and W = U^{-1} (upper tiles only) at column offset Np. A 512x512
@@ -19,14 +20,14 @@
 //     reaches it.
 //   * every product is a GP_T x GP_T output tile accumulated over a
 //     multiple of GP_T by `tile_mma`; each thread owns a 2x2 micro-tile.
-//   * gp_cholinv.cu and the stream2 kernel use the pipelined product
-//     gp_mma_pipe below instead (64x64 or 128x128 outputs, chunks copied
-//     ahead by cp.async).
+//   * gp_cholinv.cu, gp_vg.cu and the stream kernels use the pipelined
+//     product gp_mma_pipe below instead (64x64 or 128x128 outputs, chunks
+//     copied ahead by cp.async) on grids of many blocks per expert.
 //
-// What bounds it on an H100: FP32 operations (the vg kernel does ~N^3 flops
-// per expert against ~20 N bytes of input). This first version runs on the
-// CUDA cores at a low share of the FP32 peak: the tile products are
-// shared-memory bound and the 32x32 diagonal factor runs on one warp.
+// What bounds it on an H100: FP32 operations (~N^3 flops per expert against
+// ~20 N bytes of input). The one-block routines run on the CUDA cores at a
+// low share of the FP32 peak: the tile products are shared-memory bound and
+// the 32x32 diagonal factor runs on one warp.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -177,8 +178,8 @@ static __device__ void tile_mma(float acc[2][2], const float* A, int lda,
 }
 
 // ---------------------------------------------------------------------------
-// gp_mma_pipe: the pipelined tile product of gp_cholinv.cu and the stream2
-// kernel of gp_sgpr_stream.cu.
+// gp_mma_pipe: the pipelined tile product of gp_cholinv.cu, gp_vg.cu and the
+// stream kernels of gp_sgpr_stream.cu.
 //
 // acc (this thread's (T/16) x (T/16) micro-tile of a T x T output, T = 64 or
 // 128, GP_THREADS threads) += sum_{p < K} opA(r, p) * opB(p, c)

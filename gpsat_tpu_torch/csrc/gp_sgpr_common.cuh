@@ -1,14 +1,15 @@
 // Device code shared by the SGPR kernels (gp_sgpr_stream.cu, gp_sgpr_vg.cu):
 // the 64x64 tile product gs_mma64, the staging of inducing points and data
-// panels, and the routine that builds one A~ = W_u^T Kuf panel.
+// panels, and the routines that build one Kuf panel and one A~ = W_u^T Kuf
+// panel.
 //
 // Replaces the shared pieces of gpsat_tpu/ops/pallas_sgpr.py:
 // _build_kuf_at_tiles (:600) and the dot_general tiles of its kernels.
 //
 // Two tile products serve these kernels. gs_mma64 (64x64 outputs, 4x4
 // micro-tiles, float4 shared-memory reads) loads a 32-deep chunk, waits for
-// it and multiplies it: nothing overlaps the global loads. stream1 and the
-// four product kernels of gp_sgpr_vg.cu run on it. stream2 runs on
+// it and multiplies it: nothing overlaps the global loads. The four product
+// kernels of gp_sgpr_vg.cu run on it. stream1 and stream2 run on
 // gp_mma_pipe<128> of gp_common.cuh: 128x128 outputs with 8x8 micro-tiles
 // (4 float4 reads per 64 FMAs instead of 2 per 16, so each operand byte
 // feeds twice the FMAs), operands staged without bank conflicts, the next
@@ -25,32 +26,27 @@
 #define GS_KC 32   // depth of one staged chunk
 #define GS_TS 68   // padded row stride of a staged chunk (16-byte multiple)
 
-// Where gs_mma64's stage (GS_STAGE_FLOATS) is the front of a block's dynamic
-// shared memory (the stream kernels), it overlays the tiles As, Bs, St, Wt,
-// Ct of GpShared, which those kernels use for nothing else, and must end
-// before GpShared::red.
-#define GS_STAGE_FLOATS (2 * GS_KC * GS_TS)
-static_assert(GS_STAGE_FLOATS <= 5 * GP_TILE_ELEMS,
-              "gs_mma64's stage overruns the five tiles of GpShared");
 static_assert(GS_TS % 4 == 0 && GS_TS >= GS_T && GS_PW % GS_T == 0,
               "staged rows are read as float4 and hold one tile row");
+#define GS_STAGE_FLOATS (2 * GS_KC * GS_TS)  // gs_mma64's shared memory
 
 struct GsShared {
   float* zs;    // [D][Mp] inducing coordinates / lengthscales
   float* zm;    // [Mp] inducing mask
-  float* vec;   // [Mp] stream1: a~ accumulator; stream2: dd
+  float* vec;   // [Mp] stream2: dd
   float* xs;    // [D][GS_PW] panel coordinates / lengthscales
   float* mx;    // [GS_PW] panel data mask
   float* yv;    // [GS_PW] panel ybar
   float* beta;  // [GS_PW] stream2: beta of the panel
 };
 
+// floats of dynamic shared memory of the stream kernels: gp_mma_pipe<128>'s
+// stage, 32 for block reductions, then the GsShared fields (gs_carve)
 static inline __host__ __device__ int gs_smem_floats(int D, int Mp) {
-  return gp_smem_floats(0, 0, 0) + (D + 2) * Mp + (D + 3) * GS_PW;
+  return GP_PIPE_STAGE_FLOATS(GS_PW) + 32 + (D + 2) * Mp + (D + 3) * GS_PW;
 }
 
-// The fields from `base` on: gs_smem_floats(D, Mp) - gp_smem_floats(0, 0, 0)
-// floats.
+// The GsShared fields from `base` on: (D + 2) Mp + (D + 3) GS_PW floats.
 static __device__ __forceinline__ GsShared gs_carve(float* base, int D,
                                                     int Mp) {
   GsShared g;
@@ -131,17 +127,13 @@ static __device__ void gs_mma64(float acc[4][4], const float* A, int lda,
   }
 }
 
-// pan [Mp][GS_PW] <- Kuf of the staged panel, then A~ = W_u^T Kuf in place,
-// by T x T output tiles: gs_mma64 for T = GS_T, gp_mma_pipe<T> for T = 128
-// (`stage` is the product's shared memory).
-template <int KID, int T>
-static __device__ void gs_build_at_panel(float* stage, const GsShared& g,
-                                         const float* Wu, float* pan, int Mp,
-                                         int D, float sf2) {
-  constexpr int TM = T / 16;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+// pan [Mp][GS_PW] <- Kuf of the staged panel (data mask and inducing mask
+// applied).
+template <int KID>
+static __device__ void gs_build_kuf_panel(const GsShared& g, float* pan,
+                                          int Mp, int D, float sf2) {
   const float scale = gp_scale<KID>();
-  for (int i = tid; i < Mp * GS_PW; i += GP_THREADS) {
+  for (int i = threadIdx.x; i < Mp * GS_PW; i += GP_THREADS) {
     const int m = i / GS_PW, n = i % GS_PW;
     float r2 = 0.f;
     for (int d = 0; d < D; ++d) {
@@ -151,23 +143,29 @@ static __device__ void gs_build_at_panel(float* stage, const GsShared& g,
     pan[i] = sf2 * gp_phi<KID>(r2 * scale) * (g.zm[m] * g.mx[n]);
   }
   __syncthreads();
-  for (int iT = Mp - T; iT >= 0; iT -= T)
-    for (int cs = 0; cs < GS_PW; cs += T) {
-      // A~[iT + r][cs + c] = sum_{q < iT + T} W_u[q][iT + r] Kuf[q][cs + c];
-      // the rows it overwrites are read by no later tile row
-      float acc[TM][TM] = {};
-      if constexpr (T == GS_T)
-        gs_mma64<true, false>(acc, Wu + iT, Mp, pan + cs, GS_PW, iT + T,
-                              stage);
-      else
-        gp_mma_pipe<T, true, false>(acc, Wu + iT, Mp, pan + cs, GS_PW,
-                                    iT + T, stage);
+}
+
+// pan [Mp][GS_PW] <- Kuf of the staged panel, then A~ = W_u^T Kuf in place,
+// by 128 x 128 output tiles through gp_mma_pipe (`stage` is its shared
+// memory). Tile rows run in descending order: row i of W_u^T Kuf reads only
+// Kuf rows <= i, so the rows a tile overwrites are read by no later tile.
+template <int KID>
+static __device__ void gs_build_at_panel(float* stage, const GsShared& g,
+                                         const float* Wu, float* pan, int Mp,
+                                         int D, float sf2) {
+  constexpr int T = GS_PW, TM = T / 16;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  gs_build_kuf_panel<KID>(g, pan, Mp, D, sf2);
+  for (int iT = Mp - T; iT >= 0; iT -= T) {
+    // A~[iT + r][c] = sum_{q < iT + T} W_u[q][iT + r] Kuf[q][c]
+    float acc[TM][TM] = {};
+    gp_mma_pipe<T, true, false>(acc, Wu + iT, Mp, pan, GS_PW, iT + T, stage);
 #pragma unroll
-      for (int a = 0; a < TM; ++a)
+    for (int a = 0; a < TM; ++a)
 #pragma unroll
-        for (int b = 0; b < TM; ++b)
-          pan[(size_t)(iT + gp_pipe_at(a, ty)) * GS_PW + cs +
-              gp_pipe_at(b, tx)] = acc[a][b];
-    }
+      for (int b = 0; b < TM; ++b)
+        pan[(size_t)(iT + gp_pipe_at(a, ty)) * GS_PW + gp_pipe_at(b, tx)] =
+            acc[a][b];
+  }
   __syncthreads();
 }

@@ -23,130 +23,168 @@
 //            reduced elementwise against sf2 phi and sf2 F q2_j (never the
 //            rank-1 expansion, which cancels at coincident points).
 //
-// Design. The data axis is cut into panels of GS_PW columns. For each panel
-// a block builds the Kuf panel [Mp x GS_PW] in its slice of a device-memory
-// workspace, turns it into A~ in place (tile rows in descending order: row
-// i of W_u^T Kuf reads only Kuf rows <= i), and adds its own partial
-// outputs. A second kernel adds the partials of each expert in a fixed
-// order, so a run repeats itself bit for bit: there are no atomics.
-// stream1: block (e, s) of a (B, S) grid walks panels s, s+S, ... of expert
-// e; every product is a GS_T x GS_T tile by gs_mma64 (4x4 micro-tiles).
+// Design. The data axis is cut into panels of GS_PW columns, and every
+// product is a 128 x 128 output tile through gp_mma_pipe (8x8 micro-tiles,
+// the next 32-deep chunk in flight while one is multiplied). Sums run in a
+// fixed order with no atomics, so a second launch repeats the first bit for
+// bit.
+// stream1 runs in slabs of at most Ns data columns (the wrapper's slab
+// width; the bench's N = 2000 and route mega's whole gate, N <= 4096, are
+// one slab), three launches a slab:
+//   (a) build   a grid of G blocks (one per SM) takes the (expert, panel)
+//               items of the slab in turn: Kuf of the panel into the block's
+//               own [Mp][GS_PW] buffer, A~ = W_u^T Kuf tile by tile into the
+//               slab, stored data-major [B][Ns][Mp] (so that both operands
+//               of (b) are copied by cp.async), and the item's partials of
+//               a~ and of |A~|_F^2 from the tiles in registers (the squares
+//               of A~ summed, not s2 tr Bsum: the value's trace term
+//               sf2 n - |A~|_F^2 cancels, so every rounding of it shows);
+//   (b) gram    a grid of (upper 128 x 128 tile pair, expert) items, each
+//               one product over the slab's whole depth: it writes its tile
+//               of A~ A~^T / s2 and the mirror (first slab) or adds them
+//               (later slabs), so Bsum crosses device memory once a slab;
+//   (c) reduce  a~ and trA2 from the items' partials, added in order.
+// The workspace is one slab, the partials of its panels and G Kuf panels,
+// whatever N (201 MB + 35 MB at B = 48, Np = 2048, Mp = 512, G = 132).
 // stream2: a grid of G blocks (one per SM, from the wrapper: the 8x8
 // micro-tiles take ~220 registers a thread, so a second block of 256 threads
 // would not fit beside it) takes the (expert, panel) items in turn, one
 // partial per item, so every SM gets the same number of panels within one
 // and the workspace is G panel pairs (G x 2 Mp GS_PW floats: 69 MB at
-// G = 132, Mp = 512) whatever B and N; every product is a 128 x 128 tile by
-// gp_mma_pipe (the next chunk in flight while one is multiplied), so P is
-// read once per panel and A~ and v Mp / 128 times.
+// G = 132, Mp = 512) whatever B and N; P is read once per panel and A~ and
+// v Mp / 128 times.
 // Bound on an H100: FP32 operations against ~6 M^2 bytes per expert. stream1
 // needs 2 M^2 N (the triangular W_u^T Kuf and the symmetric A~ A~^T, M^2 N
 // each), stream2 4 M^2 N (A~ again, the dense P A~ at 2 M^2 N, the
 // triangular W_u v). The tile products run on the CUDA cores in FP32.
 #include "gp_sgpr_common.cuh"
 
+#define GS2_T 128  // output tile edge of the stream kernels' products
+static_assert(GS_PW == GS2_T, "a panel is one output tile wide");
+
+// stream1 (a): block b takes the items w = b, b + G, ... of the B x nps
+// (expert, panel) pairs of the slab that starts at data column n0; slab
+// [B][Ns][Mp] gets A~^T of the slab's columns (row n0' of expert e's slab
+// is data column n0 + n0'), partA [B][nps][Mp] and partT [B][nps] the
+// item's partials of a~ and |A~|_F^2; pans holds G Kuf panels.
 template <int KID>
-__global__ void __launch_bounds__(GP_THREADS)
-gp_sgpr_stream1_kernel(const float* xt, const float* yt, const float* zt,
-                       const float* p, const float* Wu, float* partB,
-                       float* partA, float* partT, float* ws, int Np, int Mp,
-                       int D) {
+__global__ void __launch_bounds__(GP_THREADS, 1)
+gp_sgpr_stream1_build(const float* xt, const float* yt, const float* zt,
+                      const float* p, const float* Wu, float* slab,
+                      float* partA, float* partT, float* pans, int B, int Np,
+                      int Mp, int D, int n0, int nps, int Ns) {
+  constexpr int TM = GS2_T / 16;
   extern __shared__ __align__(16) float sm[];
-  const int e = blockIdx.x, sp = blockIdx.y, S = gridDim.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = (tid >> 4) * 4, c0 = (tid & 15) * 4;
-  const size_t slot = (size_t)e * S + sp;
-  const float* pe = p + (size_t)e * 8;
-  const float sf2 = pe[5], inv_s2 = 1.f / pe[6];
-  const float* Wue = Wu + (size_t)e * Mp * Mp;
-  float* Bp = partB + slot * Mp * Mp;
-  float* pan = ws + slot * Mp * GS_PW;
-  GpShared s = gp_carve(sm, 0, 0);
-  GsShared g = gs_carve(s.xs, D, Mp);
+  float* stage = sm;
+  float* red = sm + GP_PIPE_STAGE_FLOATS(GS2_T);
+  const GsShared g = gs_carve(red + 32, D, Mp);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  float* kuf = pans + (size_t)blockIdx.x * Mp * GS_PW;
 
-  gs_stage_inducing(g, zt + (size_t)e * 8 * Mp, pe, D, Mp);
-  for (int i = tid; i < Mp; i += GP_THREADS) g.vec[i] = 0.f;
-  for (int i = tid; i < Mp * Mp; i += GP_THREADS) Bp[i] = 0.f;
-  __syncthreads();
-
-  float tr = 0.f;
-  for (int n0 = sp * GS_PW; n0 < Np; n0 += S * GS_PW) {
-    gs_stage_panel(g, xt + (size_t)e * 8 * Np, yt + (size_t)e * Np, pe, D, Np,
-                   n0);
-    gs_build_at_panel<KID, GS_T>(s.As, g, Wue, pan, Mp, D, sf2);
-
-    // a~ += A~ ybar and |A~|_F^2, one warp per row
-    for (int m = warp; m < Mp; m += GP_THREADS / 32) {
-      float a = 0.f, q = 0.f;
-      for (int n = lane; n < GS_PW; n += 32) {
-        const float v = pan[(size_t)m * GS_PW + n];
-        a += v * g.yv[n];
-        q += v * v;
-      }
-      a = gp_warp_sum(a);
-      q = gp_warp_sum(q);
-      if (lane == 0) {
-        g.vec[m] += a;
-        tr += q;
-      }
+  int staged = -1;
+  for (int w = blockIdx.x; w < B * nps; w += gridDim.x) {
+    const int e = w / nps, j = w % nps;
+    const float* pe = p + (size_t)e * 8;
+    const float* Wue = Wu + (size_t)e * Mp * Mp;
+    float* At = slab + ((size_t)e * Ns + (size_t)j * GS_PW) * Mp;
+    __syncthreads();  // the last item's readers of g are done
+    if (e != staged) {
+      gs_stage_inducing(g, zt + (size_t)e * 8 * Mp, pe, D, Mp);
+      staged = e;
     }
+    gs_stage_panel(g, xt + (size_t)e * 8 * Np, yt + (size_t)e * Np, pe, D, Np,
+                   n0 + j * GS_PW);
+    gs_build_kuf_panel<KID>(g, kuf, Mp, D, pe[5]);
 
-    // B += A~ A~^T / s2 over the upper tile pairs (the reduce kernel
-    // mirrors them); each thread owns the same entries in every panel
-    for (int iT = 0; iT < Mp; iT += GS_T)
-      for (int jT = iT; jT < Mp; jT += GS_T) {
-        float acc[4][4] = {};
-        gs_mma64<false, true>(acc, pan + (size_t)iT * GS_PW, GS_PW,
-                              pan + (size_t)jT * GS_PW, GS_PW, GS_PW, s.As);
+    float tr = 0.f;
+    for (int iT = 0; iT < Mp; iT += GS2_T) {
+      // A~[iT + r][c] = sum_{q < iT + T} W_u[q][iT + r] Kuf[q][c]
+      float acc[TM][TM] = {};
+      gp_mma_pipe<GS2_T, true, false>(acc, Wue + iT, Mp, kuf, GS_PW,
+                                      iT + GS2_T, stage);
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+      for (int a = 0; a < TM; ++a) {
+        // a~ partial of row m over the panel: this thread's eight columns,
+        // then the sixteen threads of the row (one half-warp), in order
+        float s = 0.f;
 #pragma unroll
-          for (int b = 0; b < 4; ++b)
-            Bp[(size_t)(iT + r0 + a) * Mp + jT + c0 + b] += acc[a][b] * inv_s2;
+        for (int b = 0; b < TM; ++b) {
+          s += acc[a][b] * g.yv[gp_pipe_at(b, tx)];
+          tr += acc[a][b] * acc[a][b];
+        }
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (tx == 0)
+          partA[(size_t)w * Mp + iT + gp_pipe_at(a, ty)] = s;
       }
-    __syncthreads();
+      // the tile transposed into the slab: four adjacent rows m of one
+      // column n are one float4
+#pragma unroll
+      for (int b = 0; b < TM; ++b)
+#pragma unroll
+        for (int h = 0; h < TM / 4; ++h)
+          *reinterpret_cast<float4*>(At + (size_t)gp_pipe_at(b, tx) * Mp +
+                                     iT + h * 64 + ty * 4) =
+              make_float4(acc[4 * h + 0][b], acc[4 * h + 1][b],
+                          acc[4 * h + 2][b], acc[4 * h + 3][b]);
+    }
+    tr = gp_block_sum(tr, red);
+    if (tid == 0) partT[w] = tr;
   }
-
-  tr = gp_block_sum(tr, s.red);
-  for (int i = tid; i < Mp; i += GP_THREADS) partA[slot * Mp + i] = g.vec[i];
-  if (tid == 0) partT[slot] = tr;
 }
 
-// Bsum, at, trA2 <- the S partials of each expert, added in order; the tiles
-// below the diagonal of Bsum are the mirror of those above it. Grid (B, Mp):
-// one block per row of Bsum.
-__global__ void __launch_bounds__(GP_THREADS)
-gp_sgpr_stream1_reduce(const float* partB, const float* partA,
-                       const float* partT, float* Bsum, float* at,
-                       float* trA2, int Mp, int S) {
-  const int e = blockIdx.x, r = blockIdx.y;
-  const size_t base = (size_t)e * S;
-  for (int c = threadIdx.x; c < Mp; c += GP_THREADS) {
-    const bool upper = r / GS_T <= c / GS_T;
-    const size_t o = upper ? (size_t)r * Mp + c : (size_t)c * Mp + r;
-    float t = 0.f;
-    for (int sp = 0; sp < S; ++sp) t += partB[(base + sp) * Mp * Mp + o];
-    Bsum[((size_t)e * Mp + r) * Mp + c] = t;
-    if (r == 0) {
-      float a = 0.f;
-      for (int sp = 0; sp < S; ++sp) a += partA[(base + sp) * Mp + c];
-      at[(size_t)e * Mp + c] = a;
-    }
+// stream1 (b): block (t, e) forms tile (i, j), the t-th upper pair i <= j in
+// row order, of A~ A~^T / s2 over the slab's depth K and writes it and its
+// mirror into Bsum, or adds them where `first` is 0. A diagonal tile is
+// symmetric bit for bit (the same products in the same order), so it is
+// written once.
+__global__ void __launch_bounds__(GP_THREADS, 1)
+gp_sgpr_stream1_gram(const float* slab, const float* p, float* Bsum, int Mp,
+                     int Ns, int K, int first) {
+  constexpr int TM = GS2_T / 16;
+  extern __shared__ __align__(16) float stage[];
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int e = blockIdx.y, nt = Mp / GS2_T;
+  int t = blockIdx.x, i = 0;
+  while (t >= nt - i) {
+    t -= nt - i;
+    ++i;
   }
-  if (r == 0 && threadIdx.x == 0) {
-    float t = 0.f;
-    for (int sp = 0; sp < S; ++sp) t += partT[base + sp];
+  const int iT = i * GS2_T, jT = (i + t) * GS2_T;
+  const float* At = slab + (size_t)e * Ns * Mp;
+  float acc[TM][TM] = {};
+  gp_mma_pipe<GS2_T, true, false>(acc, At + iT, Mp, At + jT, Mp, K, stage);
+  const float inv_s2 = 1.f / p[(size_t)e * 8 + 6];
+  float* Be = Bsum + (size_t)e * Mp * Mp;
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+#pragma unroll
+    for (int b = 0; b < TM; ++b) {
+      const int r = iT + gp_pipe_at(a, ty), c = jT + gp_pipe_at(b, tx);
+      float v = acc[a][b] * inv_s2;
+      if (!first) v += Be[(size_t)r * Mp + c];
+      Be[(size_t)r * Mp + c] = v;
+      if (iT != jT) Be[(size_t)c * Mp + r] = v;
+    }
+}
+
+// stream1 (c): at and trA2 <- the slab's partials added in order, to the
+// earlier slabs' sums where `first` is 0. One block per expert.
+__global__ void __launch_bounds__(GP_THREADS)
+gp_sgpr_stream1_reduce(const float* partA, const float* partT, float* at,
+                       float* trA2, int Mp, int nps, int first) {
+  const int e = blockIdx.x;
+  for (int c = threadIdx.x; c < Mp; c += GP_THREADS) {
+    float a = first ? 0.f : at[(size_t)e * Mp + c];
+    for (int j = 0; j < nps; ++j) a += partA[((size_t)e * nps + j) * Mp + c];
+    at[(size_t)e * Mp + c] = a;
+  }
+  if (threadIdx.x == 0) {
+    float t = first ? 0.f : trA2[e];
+    for (int j = 0; j < nps; ++j) t += partT[(size_t)e * nps + j];
     trA2[e] = t;
   }
-}
-
-// stream2's block: GS2_T x GS2_T output tiles through gp_mma_pipe, whose
-// stage is the front of the dynamic shared memory.
-#define GS2_T 128
-static_assert(GS_PW == GS2_T, "a stream2 panel is one output tile wide");
-
-static inline __host__ __device__ int gs2_smem_floats(int D, int Mp) {
-  return GP_PIPE_STAGE_FLOATS(GS2_T) + 32 + (D + 2) * Mp + (D + 3) * GS_PW;
 }
 
 // Grid G: block b takes the items w = b, b + G, ...
@@ -185,7 +223,7 @@ gp_sgpr_stream2_kernel(const float* xt, const float* yt, const float* zt,
     }
     gs_stage_panel(g, xt + (size_t)e * 8 * Np, yt + (size_t)e * Np, pe, D, Np,
                    n0);
-    gs_build_at_panel<KID, GS2_T>(stage, g, Wue, pan, Mp, D, sf2);
+    gs_build_at_panel<KID>(stage, g, Wue, pan, Mp, D, sf2);
 
     // beta = ybar / s2 - A~^T dd / s2^2
     for (int n = tid; n < GS_PW; n += GP_THREADS) {
@@ -283,25 +321,39 @@ __global__ void gp_sgpr_stream2_reduce(const float* partG, float* gout, int B,
   gout[i] = t;
 }
 
-// partB [B][S][Mp][Mp], partA [B][S][Mp], partT [B][S] and
-// ws [B][S][Mp][GS_PW] are scratch from the wrapper.
+// slab [B][Ns][Mp], partA [B][Ns / GS_PW][Mp], partT [B][Ns / GS_PW] and
+// pans [G][Mp][GS_PW] are scratch from the wrapper; Ns (a multiple of
+// GS_PW) is the slab width, G the number of blocks of the build.
 extern "C" int gp_sgpr_stream1_launch(const float* xt, const float* yt,
                                       const float* zt, const float* p,
                                       const float* Wu, float* Bsum, float* at,
-                                      float* trA2, float* partB, float* partA,
-                                      float* partT, float* ws, int B, int Np,
-                                      int Mp, int D, int S, int kernel_id,
-                                      void* stream) {
+                                      float* trA2, float* slab, float* partA,
+                                      float* partT, float* pans, int B,
+                                      int Np, int Mp, int D, int Ns, int G,
+                                      int kernel_id, void* stream) {
   const size_t smem = sizeof(float) * gs_smem_floats(D, Mp);
+  const size_t gsmem = sizeof(float) * GP_PIPE_STAGE_FLOATS(GS2_T);
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(B, S);
-  int code;
-  GP_DISPATCH(gp_sgpr_stream1_kernel, xt, yt, zt, p, Wu, partB, partA, partT,
-              ws, Np, Mp, D)
-  if (code != 0) return code;
-  gp_sgpr_stream1_reduce<<<dim3(B, Mp), GP_THREADS, 0, st>>>(
-      partB, partA, partT, Bsum, at, trA2, Mp, S);
-  return (int)cudaGetLastError();
+  const int nt = Mp / GS2_T;
+  for (int n0 = 0; n0 < Np; n0 += Ns) {
+    const int K = Np - n0 < Ns ? Np - n0 : Ns, nps = K / GS_PW;
+    const int first = n0 == 0;
+    int code;
+    {
+      const dim3 grid(B * nps < G ? B * nps : G);
+      GP_DISPATCH(gp_sgpr_stream1_build, xt, yt, zt, p, Wu, slab, partA,
+                  partT, pans, B, Np, Mp, D, n0, nps, Ns)
+      if (code != 0) return code;
+    }
+    code = gp_launch(gp_sgpr_stream1_gram, dim3(nt * (nt + 1) / 2, B), gsmem,
+                     st, (const float*)slab, p, Bsum, Mp, Ns, K, first);
+    if (code != 0) return code;
+    gp_sgpr_stream1_reduce<<<B, GP_THREADS, 0, st>>>(partA, partT, at, trA2,
+                                                     Mp, nps, first);
+    code = (int)cudaGetLastError();
+    if (code != 0) return code;
+  }
+  return 0;
 }
 
 // partG [B][Np / GS_PW][8] and ws [G][2][Mp][GS_PW] are scratch from the
@@ -313,7 +365,7 @@ extern "C" int gp_sgpr_stream2_launch(const float* xt, const float* yt,
                                       float* partG, float* ws, int B, int Np,
                                       int Mp, int D, int G, int kernel_id,
                                       void* stream) {
-  const size_t smem = sizeof(float) * gs2_smem_floats(D, Mp);
+  const size_t smem = sizeof(float) * gs_smem_floats(D, Mp);
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid(G);
   int code;

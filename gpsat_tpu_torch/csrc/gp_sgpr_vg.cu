@@ -9,9 +9,10 @@
 //   zt [B][8][Mp]  inducing coordinates, float mask in row 7
 //   p  [B][8]      ls_0..ls_{D-1}, sf2 @5, s2 @6
 //   out [B][8]     0: value, 1..D: d/dlog ls_j, 6: d/dlog sf2, 7: d/ds2
-//   ws             scratch of gp_sgpr_vg_ws_floats(B, Np, Mp, S, G) floats
-// Np is a multiple of 128 and Mp of 128; S is the data-axis split of the
-// first streamed pass, G the number of blocks of the second.
+//   ws             scratch of gp_sgpr_vg_ws_floats(B, Np, Mp, G) floats
+// Np is a multiple of 128, at most 4096 (one slab of the first streamed
+// pass), and Mp of 128; G is the number of blocks of the streamed passes'
+// item grids.
 //
 // Design. The TPU kernel walks its phases in one program because its grid
 // runs in order on one core with every factor resident in VMEM. Here one
@@ -20,7 +21,8 @@
 //   P1  gv_kuu_kernel       Kuu, masked, jitter on the valid diagonal and a
 //                           unit diagonal on padded rows     grid (B, Mp)
 //   P2  gp_cholinv_launch   W_u = U_u^{-1}                   grid (B)
-//   P3  gp_sgpr_stream1_launch  Bsum = A~A~^T/s2, a~, |A~|^2 grid (B, S)
+//   P3  gp_sgpr_stream1_launch  Bsum = A~A~^T/s2, a~, |A~|^2 grids (G),
+//                           (tile pairs, B), (B)
 //   P4  gv_add_identity, gp_cholinv_launch  B = I + Bsum -> W_B, log det
 //   P5  gv_small_kernel     c, dd = B^{-1} a~, e = W_u dd, the scalars, the
 //                           value and d/ds2 (P8)             grid (B)
@@ -48,10 +50,10 @@ extern "C" int gp_cholinv_launch(const float* A, float* W, float* ld,
 extern "C" int gp_sgpr_stream1_launch(const float* xt, const float* yt,
                                       const float* zt, const float* p,
                                       const float* Wu, float* Bsum, float* at,
-                                      float* trA2, float* partB, float* partA,
-                                      float* partT, float* ws, int B, int Np,
-                                      int Mp, int D, int S, int kernel_id,
-                                      void* stream);
+                                      float* trA2, float* slab, float* partA,
+                                      float* partT, float* pans, int B,
+                                      int Np, int Mp, int D, int Ns, int G,
+                                      int kernel_id, void* stream);
 extern "C" int gp_sgpr_stream2_launch(const float* xt, const float* yt,
                                       const float* zt, const float* p,
                                       const float* Wu, const float* Pm,
@@ -340,8 +342,8 @@ struct GvWorkspace {
   size_t floats;            // the whole
 };
 
-static GvWorkspace gv_layout(int B, int Np, int Mp, int S, int G) {
-  const size_t b = B, m = Mp, s = S, m2 = m * m, nt = m / GS_T;
+static GvWorkspace gv_layout(int B, int Np, int Mp, int G) {
+  const size_t b = B, m = Mp, m2 = m * m, nt = m / GS_T;
   const size_t np = Np / GS_PW, g = G;
   GvWorkspace w;
   size_t q = 0;
@@ -361,28 +363,27 @@ static GvWorkspace gv_layout(int B, int Np, int Mp, int S, int G) {
   w.partU = q; q += b * nt * nt * 8;
   q = (q + 63) / 64 * 64;  // gp_mma_pipe reads the panels by 16-byte copies
   w.stream = q;
-  // pass 1: partB [B][S][Mp][Mp], partA [B][S][Mp], partT [B][S],
-  // panels [B][S][Mp][GS_PW]; pass 2: partG [B][Np / GS_PW][8], panels
-  // [G][2][Mp][GS_PW], over the same floats
-  const size_t s1 = b * s * (m2 + m + 1 + m * GS_PW);
+  // pass 1: Kuf panels [G][Mp][GS_PW], the slab [B][Np][Mp], partA
+  // [B][Np / GS_PW][Mp], partT [B][Np / GS_PW]; pass 2: partG
+  // [B][Np / GS_PW][8], panels [G][2][Mp][GS_PW], over the same floats
+  const size_t s1 = g * m * GS_PW + b * Np * m + b * np * (m + 1);
   const size_t s2 = b * np * 8 + g * 2 * m * GS_PW;
   w.floats = q + (s1 > s2 ? s1 : s2);
   return w;
 }
 
-extern "C" long long gp_sgpr_vg_ws_floats(int B, int Np, int Mp, int S,
-                                          int G) {
-  return (long long)gv_layout(B, Np, Mp, S, G).floats;
+extern "C" long long gp_sgpr_vg_ws_floats(int B, int Np, int Mp, int G) {
+  return (long long)gv_layout(B, Np, Mp, G).floats;
 }
 
 extern "C" int gp_sgpr_vg_launch(const float* xt, const float* yt,
                                  const float* zt, const float* p, float* out,
                                  float* ws, int B, int Np, int Mp, int D,
-                                 int S, int G, float jitter, int kernel_id,
+                                 int G, float jitter, int kernel_id,
                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const GvWorkspace w = gv_layout(B, Np, Mp, S, G);
-  const size_t b = B, m = Mp, s = S, m2 = m * m;
+  const GvWorkspace w = gv_layout(B, Np, Mp, G);
+  const size_t b = B, m = Mp, g = G;
   const int nt = Mp / GS_T;
   const dim3 rows(B, Mp), tiles(B, nt, nt);
   float *A0 = ws + w.A0, *Wu = ws + w.Wu, *Uw = ws + w.Uw, *Bs = ws + w.Bs,
@@ -399,12 +400,12 @@ extern "C" int gp_sgpr_vg_launch(const float* xt, const float* yt,
   code = gp_cholinv_launch(A0, Wu, ldu, Uw, B, Mp, stream);
   if (code != 0) return code;
   {
-    float* partB = ws + w.stream;
-    float* partA = partB + b * s * m2;
-    float* partT = partA + b * s * m;
-    float* pan = partT + b * s;
-    code = gp_sgpr_stream1_launch(xt, yt, zt, p, Wu, Bs, at, trA2, partB,
-                                  partA, partT, pan, B, Np, Mp, D, S,
+    float* pans = ws + w.stream;
+    float* slab = pans + g * m * GS_PW;
+    float* partA = slab + b * Np * m;
+    float* partT = partA + b * (Np / GS_PW) * m;
+    code = gp_sgpr_stream1_launch(xt, yt, zt, p, Wu, Bs, at, trA2, slab,
+                                  partA, partT, pans, B, Np, Mp, D, Np, G,
                                   kernel_id, stream);
     if (code != 0) return code;
   }

@@ -40,14 +40,14 @@ _SIGNATURES = {
                           _P],
     # A, W, ld, ws, B, M, stream
     "gp_cholinv_launch": [_P, _P, _P, _P, _I, _I, _P],
-    # xt, yt, zt, p, Wu, Bsum, at, trA2, partB, partA, partT, ws,
-    # B, Np, Mp, D, S, kernel_id, stream
-    "gp_sgpr_stream1_launch": [_P] * 12 + [_I] * 6 + [_P],
+    # xt, yt, zt, p, Wu, Bsum, at, trA2, slab, partA, partT, pans,
+    # B, Np, Mp, D, Ns, G, kernel_id, stream
+    "gp_sgpr_stream1_launch": [_P] * 12 + [_I] * 7 + [_P],
     # xt, yt, zt, p, Wu, P, dd, gout, partG, ws, B, Np, Mp, D, G, kernel_id,
     # stream
     "gp_sgpr_stream2_launch": [_P] * 10 + [_I] * 6 + [_P],
-    # xt, yt, zt, p, out, ws, B, Np, Mp, D, S, G, jitter, kernel_id, stream
-    "gp_sgpr_vg_launch": [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    # xt, yt, zt, p, out, ws, B, Np, Mp, D, G, jitter, kernel_id, stream
+    "gp_sgpr_vg_launch": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _P],
 }
 
 
@@ -133,8 +133,11 @@ def load_library():
         fn.restype = ctypes.c_int
     lib.gp_error_string.argtypes = [ctypes.c_int]
     lib.gp_error_string.restype = ctypes.c_char_p
-    # B, Np, Mp, S, G -> floats of scratch gp_sgpr_vg_launch needs
-    lib.gp_sgpr_vg_ws_floats.argtypes = [_I] * 5
+    # B, Np -> floats of scratch gp_vg_launch needs
+    lib.gp_vg_ws_floats.argtypes = [_I] * 2
+    lib.gp_vg_ws_floats.restype = ctypes.c_longlong
+    # B, Np, Mp, G -> floats of scratch gp_sgpr_vg_launch needs
+    lib.gp_sgpr_vg_ws_floats.argtypes = [_I] * 4
     lib.gp_sgpr_vg_ws_floats.restype = ctypes.c_longlong
     return lib
 

@@ -5,9 +5,12 @@ gpsat_tpu/ops/pallas_gpr.py).
 The CUDA sources are in ``gpsat_tpu_torch/csrc`` (built by ``ops/_build.py``
 at first use):
 
-- ``gp_vg.cu``      replaces ``pallas_gpr._vg_kernel``: masked kernel-matrix
-                    build, blocked Cholesky, W = U^{-1}, the NLML value and its
-                    analytic gradient, one thread block per expert.
+- ``gp_vg.cu``      replaces ``pallas_gpr._vg_kernel``: the NLML value and
+                    its analytic gradient on the many-blocks factor of
+                    ``gp_cholinv.cu`` (whose first step rebuilds the masked
+                    kernel matrix from the coordinates), then the K^{-1}
+                    tiles and the gradient lanes by tile pair; N is padded
+                    to that factor's 64-wide tile inside the launch.
 - ``gp_predict.cu`` replaces ``pallas_gpr._predict_kernel``: the same factor,
                     then mean = Ks^T alpha and var = sf2 - ||W^T Ks||^2.
 - ``gp_value.cu``   replaces ``pallas_gpr._value_kernel``: the factor alone
@@ -27,8 +30,9 @@ The shape gates ``cuda_vg_supported`` / ``cuda_value_supported`` /
 ``cuda_predict_supported`` keep the meaning of ``pallas_vg_supported`` /
 ``pallas_value_supported`` / ``pallas_predict_supported``: kernel in
 the list, D <= 5, N padded to 128 at most 1024, P padded to 128 at most
-2048. The engine takes the ops/gpr path outside them. The kernels themselves
-pad N and P only to their 32-wide tile.
+2048. The engine takes the ops/gpr path outside them. The packing pads N and
+P only to 32 (the predict and value kernels' tile); the vg launch pads N on
+to 64 in its own workspace.
 """
 
 import math
@@ -199,11 +203,16 @@ def _vg_launch(xt, yt, p, kernel, D):
     """Launch csrc/gp_vg.cu on packed f32 CUDA inputs -> [B, 8] lanes."""
     _check_cuda(xt, yt, p)
     B, _, Np = xt.shape
+    if Np % _TILE or Np > 1024:
+        raise ValueError("nlml_vg: N must be padded to 32 and at most 1024 "
+                         "(the kernel stages one expert's N in shared "
+                         "memory)")
     out = torch.empty(B, 8, dtype=torch.float32, device=xt.device)
     if B == 0:
         return out
-    ws = torch.empty(B, Np, 2 * Np, dtype=torch.float32, device=xt.device)
     lib = _build.load_library()
+    ws = torch.empty(lib.gp_vg_ws_floats(B, Np), dtype=torch.float32,
+                     device=xt.device)
     with torch.cuda.device(xt.device):
         stream = torch.cuda.current_stream(xt.device).cuda_stream
         code = lib.gp_vg_launch(xt.data_ptr(), yt.data_ptr(), p.data_ptr(),

@@ -64,7 +64,7 @@ __all__ = ["sgpr_vg_supported", "sgpr_vg_batched", "sgpr_predict_batched",
 ROUTES = ("hybrid", "stream", "mega")
 _LOG_2PI = math.log(2.0 * math.pi)
 _PANEL = 128        # GS_PW in csrc/gp_sgpr_stream.cu
-_MAX_SPLITS = 8     # cap on the data-axis splits (bounds the partials)
+_SLAB = 4096        # stream1's slab width: the data columns of one pass
 
 
 def sgpr_vg_supported(kernel, d, N=None, M=None, route="hybrid"):
@@ -308,19 +308,19 @@ def _stream2_plain(xt, yt, zt, p, wu, pmat, dd, kernel, D):
     return gout
 
 
-def _splits(B, Np, device):
-    """stream1's data-axis splits per expert: enough blocks for two per SM,
-    at most one per panel."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    panels = -(-Np // _PANEL)
-    return max(1, min(panels, (2 * sms) // max(B, 1), _MAX_SPLITS))
+def _slab_width(Np):
+    """stream1's slab: all Np data columns up to _SLAB (the bench's N=2000
+    and route mega's whole gate are one slab), else _SLAB, so the [B, slab,
+    Mp] workspace does not grow with N beyond one slab."""
+    return min(Np, _SLAB)
 
 
-def _stream2_blocks(B, Np, device):
-    """stream2's grid: one block per SM (its 256 threads need most of an
-    SM's registers) takes the B x panels (expert, panel) items in turn, at
-    most one block per item. The workspace is two panels per block, so it
-    does not grow with B or N."""
+def _item_blocks(B, Np, device):
+    """The grid of the streamed kernels' (expert, panel) items (stream1's
+    build, stream2): one block per SM (256 threads with 8x8 micro-tiles need
+    most of an SM's registers) takes the B x panels items in turn, at most
+    one block per item. Each block has its own panel buffers, so the
+    workspace does not grow with B or N."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(B * (-(-Np // _PANEL)), sms))
 
@@ -337,24 +337,30 @@ def _check_stream(xt, yt, zt, p, wu, kernel, D):
 
 def _stream1_launch(xt, yt, zt, p, wu, kernel, D):
     _check_stream(xt, yt, zt, p, wu, kernel, D)
+    if wu.data_ptr() % 16:
+        raise ValueError("sgpr_stream1: W_u must start on 16 bytes")
     B, _, Np = xt.shape
     Mp = zt.shape[2]
     dev = xt.device
-    S = _splits(B, Np, dev)
+    Ns = _slab_width(Np)
+    G = _item_blocks(B, Ns, dev)
 
     def empty(*shape):
         return torch.empty(*shape, dtype=torch.float32, device=dev)
     Bsum, at, trA2 = empty(B, Mp, Mp), empty(B, Mp), empty(B)
-    partB, partA, partT = empty(B, S, Mp, Mp), empty(B, S, Mp), empty(B, S)
-    ws = empty(B, S, Mp, _PANEL)
+    if B == 0:
+        return Bsum, at, trA2
+    slab, pans = empty(B, Ns, Mp), empty(G, Mp, _PANEL)
+    partA, partT = empty(B, Ns // _PANEL, Mp), empty(B, Ns // _PANEL)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.gp_sgpr_stream1_launch(
             xt.data_ptr(), yt.data_ptr(), zt.data_ptr(), p.data_ptr(),
             wu.data_ptr(), Bsum.data_ptr(), at.data_ptr(), trA2.data_ptr(),
-            partB.data_ptr(), partA.data_ptr(), partT.data_ptr(),
-            ws.data_ptr(), B, Np, Mp, D, S, _KERNEL_IDS[kernel], stream)
+            slab.data_ptr(), partA.data_ptr(), partT.data_ptr(),
+            pans.data_ptr(), B, Np, Mp, D, Ns, G, _KERNEL_IDS[kernel],
+            stream)
     _build.check(lib, code, "gp_sgpr_stream1_launch")
     sgpr_stream1.launches += 1
     return Bsum, at, trA2
@@ -368,7 +374,7 @@ def _stream2_launch(xt, yt, zt, p, wu, pmat, dd, kernel, D):
     B, _, Np = xt.shape
     Mp = zt.shape[2]
     dev = xt.device
-    G = _stream2_blocks(B, Np, dev)
+    G = _item_blocks(B, Np, dev)
     gout = torch.empty(B, 8, dtype=torch.float32, device=dev)
     partG = torch.empty(B, Np // _PANEL, 8, dtype=torch.float32, device=dev)
     ws = torch.empty(G, 2, Mp, _PANEL, dtype=torch.float32, device=dev)
@@ -518,15 +524,15 @@ def _mega_launch(xt, yt, zt, p, kernel, D, jitter):
     out = torch.empty(B, 8, dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    S, G = _splits(B, Np, dev), _stream2_blocks(B, Np, dev)
+    G = _item_blocks(B, Np, dev)
     lib = _build.load_library()
-    ws = torch.empty(lib.gp_sgpr_vg_ws_floats(B, Np, Mp, S, G),
+    ws = torch.empty(lib.gp_sgpr_vg_ws_floats(B, Np, Mp, G),
                      dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.gp_sgpr_vg_launch(
             xt.data_ptr(), yt.data_ptr(), zt.data_ptr(), p.data_ptr(),
-            out.data_ptr(), ws.data_ptr(), B, Np, Mp, D, S, G, float(jitter),
+            out.data_ptr(), ws.data_ptr(), B, Np, Mp, D, G, float(jitter),
             _KERNEL_IDS[kernel], stream)
     _build.check(lib, code, "gp_sgpr_vg_launch")
     sgpr_vg_mega.launches += 1

@@ -12,9 +12,9 @@ run timed on the host clock, and a warm run under torch.profiler. Prints one
 JSON object
 per sweep: wall times, pool iterations and slots, launches of each fused
 kernel, peak device memory, the device time of each CUDA kernel by name and
-summed per port kernel (`port_kernels_ms`: cholinv and stream2 enqueue
-several), and the device's busy share of the profiled wall time. Needs a
-CUDA device; numbers are this run's.
+summed per port kernel (`port_kernels_ms`: cholinv, stream1, stream2 and
+nlml_vg enqueue several), and the device's busy share of the profiled wall
+time. Needs a CUDA device; numbers are this run's.
 """
 
 import argparse
@@ -82,7 +82,8 @@ def _device_times(prof):
 
 
 # The CUDA kernels of each port kernel (a launch entry may enqueue several),
-# by the prefix of their names.
+# by the prefix of their names. nlml_vg's factor runs cholinv's kernels
+# (gp_cholinv_*), so in the gpr sweep the cholinv family is vg's factor.
 _FAMILIES = {"nlml_vg": "gp_vg_", "posterior_predict": "gp_predict_",
              "nlml_value": "gp_value_", "cholinv": "gp_cholinv_",
              "sgpr_stream1": "gp_sgpr_stream1_",
@@ -94,8 +95,11 @@ def _by_family(kernels):
     names carry its prefix."""
     out = {}
     for key, (us, calls) in kernels.items():
-        head = key.split("(")[0].split()   # drop "void " and the arguments
-        name = head[-1] if head else key
+        # drop "void " and the arguments; a template argument list may hold
+        # spaces ("gp_cholinv_diag_kernel<CiKernel<1> >")
+        name = key.split("(")[0].strip()
+        if name.startswith("void "):
+            name = name[len("void "):]
         for fam, prefix in _FAMILIES.items():
             if name.startswith(prefix):
                 ms, n = out.get(fam, (0.0, 0))

@@ -28,39 +28,39 @@ def _diag(S):
         torch.log(piv).sum(dim=1)
 
 
-def replay(A):
-    """(W, ld) of [B, M, M] masked SPD matrices by gp_cholinv_launch's
-    sequence, in A's dtype: for each k diag, panel, update; then the inverse
-    by tile offset. Tile (i, j) of a buffer X is X[:, iT:(i+1)T, jT:(j+1)T]."""
-    B, M, _ = A.shape
+def replay_tiles(tile0, B, M, dtype):
+    """(W, ld) of B masked SPD M x M matrices by gp_cholinv_launch's
+    sequence: for each k diag, panel, update; then the inverse by tile
+    offset. Step 0 takes tile (i, j) of A from tile0(i, j) [B, T, T], as the
+    step kernels take it from their source (a matrix, or the kernel matrix
+    rebuilt from coordinates); later steps read ws. Tile (i, j) of a buffer
+    X is X[:, iT:(i+1)T, jT:(j+1)T]."""
     nt = M // T
-    ws = torch.full_like(A, float("nan"))
-    W = torch.full_like(A, float("nan"))
-    ld = torch.full((B,), float("nan"), dtype=A.dtype)
+    ws = torch.full((B, M, M), float("nan"), dtype=dtype)
+    W = torch.full((B, M, M), float("nan"), dtype=dtype)
+    ld = torch.full((B,), float("nan"), dtype=dtype)
 
     def t(i, j):
-        return slice(i * T, (i + 1) * T), slice(j * T, (j + 1) * T)
+        return slice(None), slice(i * T, (i + 1) * T), slice(j * T, (j + 1) * T)
 
     for k in range(nt):
-        src = A if k == 0 else ws
-        Ukk, Wkk, lk = _diag(src[(slice(None), *t(k, k))])
-        ws[(slice(None), *t(k, k))] = Ukk
-        W[(slice(None), *t(k, k))] = Wkk
+        def src(i, j):
+            return tile0(i, j) if k == 0 else ws[t(i, j)]
+        Ukk, Wkk, lk = _diag(src(k, k))
+        ws[t(k, k)] = Ukk
+        W[t(k, k)] = Wkk
         ld = lk if k == 0 else ld + lk
         # one block a tile, a triangular solve with U_kk from ws: every block
         # reads before any writes
         panels = {j: torch.linalg.solve_triangular(
-            ws[(slice(None), *t(k, k))].mT, src[(slice(None), *t(k, j))],
-            upper=False) for j in range(k + 1, nt)}
+            ws[t(k, k)].mT, src(k, j), upper=False) for j in range(k + 1, nt)}
         for j, U in panels.items():
-            ws[(slice(None), *t(k, j))] = U
-            ws[(slice(None), *t(j, k))] = U.mT
-        updates = {(i, j): src[(slice(None), *t(i, j))]
-                   - ws[(slice(None), *t(k, i))].mT
-                   @ ws[(slice(None), *t(k, j))]
+            ws[t(k, j)] = U
+            ws[t(j, k)] = U.mT
+        updates = {(i, j): src(i, j) - ws[t(k, i)].mT @ ws[t(k, j)]
                    for i in range(k + 1, nt) for j in range(i, nt)}
         for (i, j), v in updates.items():
-            ws[(slice(None), *t(i, j))] = v
+            ws[t(i, j)] = v
     for d in range(1, nt):
         out = {}
         for i in range(nt - d):
@@ -68,11 +68,20 @@ def replay(A):
             rows = slice((i + 1) * T, (j + 1) * T)
             acc = (ws[:, rows, i * T:(i + 1) * T].mT
                    @ W[:, rows, j * T:(j + 1) * T])
-            out[i] = -W[(slice(None), *t(i, i))] @ acc
+            out[i] = -W[t(i, i)] @ acc
         for i, v in out.items():
-            W[(slice(None), *t(i, i + d))] = v
-            W[(slice(None), *t(i + d, i))] = 0.0
+            W[t(i, i + d)] = v
+            W[t(i + d, i)] = 0.0
     return W, ld
+
+
+def replay(A):
+    """(W, ld) of [B, M, M] masked SPD matrices, in A's dtype: step 0 reads
+    A, which is never written."""
+    B, M, _ = A.shape
+    return replay_tiles(
+        lambda i, j: A[:, i * T:(i + 1) * T, j * T:(j + 1) * T], B, M,
+        A.dtype)
 
 
 def make_spd(M, m_valid, seed=0):

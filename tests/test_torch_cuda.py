@@ -96,6 +96,27 @@ def test_kernels_at_ragged_and_edge_shapes(dev, N, P, D):
                                                  "Matern32", 1e-6))
 
 
+@pytest.mark.parametrize("N", [1, 33, 400, 1000])
+@pytest.mark.parametrize("B", [3, 140])
+def test_vg_kernel_pads_to_its_tile_and_repeats(dev, N, B):
+    """vg's factor runs on 64-wide tiles, so N is padded past the packing's
+    32 inside the launch (1 -> 64, 33 -> 64, 400 -> 448, 1000 -> 1024); B
+    below and above the card's SM count. Value rtol 2e-5 atol 1e-3,
+    gradients rtol 2e-3 atol 2e-3 against the plain version; a second launch
+    repeats the first bit for bit; one count per launch."""
+    params, X, y, m, _ = make_case(dev, B=B, N=N, P=1, D=3, seed=N + B)
+    params["likelihood_variance"] = params["likelihood_variance"] + 0.3
+    before = cuda_gpr.nlml_vg_batched.launches
+    got = cuda_gpr.nlml_vg_batched(params, X, y, m, "Matern32", 1e-6)
+    assert cuda_gpr.nlml_vg_batched.launches == before + 1
+    assert_vg_close(got, cuda_gpr.nlml_vg_batched_plain(params, X, y, m,
+                                                        "Matern32", 1e-6))
+    again = cuda_gpr.nlml_vg_batched(params, X, y, m, "Matern32", 1e-6)
+    assert torch.equal(got[0], again[0])
+    for k in got[1]:
+        assert torch.equal(got[1][k], again[1][k]), k
+
+
 def test_scalar_lengthscale_and_non_pd(dev):
     params, X, y, m, _ = make_case(dev, B=4, N=64, D=2, seed=3)
     params["lengthscales"] = params["lengthscales"][:, :1].contiguous()
@@ -119,6 +140,10 @@ def test_outside_the_gate_raises_on_the_card(dev):
     params, X, y, m, _ = make_case(dev, B=1, N=1030, D=2)
     with pytest.raises(ValueError, match="gate"):
         cuda_gpr.nlml_value_batched(params, X, y, m, "Matern32", 0.0)
+    xt = torch.zeros(1, 8, 1056, device=dev)
+    with pytest.raises(ValueError, match="at most 1024"):
+        cuda_gpr._vg_launch(xt, xt[:, 0].contiguous(),
+                            torch.ones(1, 8, device=dev), "Matern32", 2)
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -314,7 +339,7 @@ def make_sgpr_case(dev, B=4, N=300, M=100, D=3, seed=0):
     ("Exponential", 230, 100, 3), ("Matern32", 70, 30, 1),
     ("Matern32", 1100, 260, 2), ("Matern32", 150, 128, 5),
     ("Matern32", 2000, 1000, 2)])
-@pytest.mark.parametrize("B", [1, 4, 48])
+@pytest.mark.parametrize("B", [1, 4, 48, 140])
 def test_stream_kernels_match_plain(dev, kernel, N, M, D, B):
     """stream1 and stream2 against their plain versions on the same packed
     inputs (ragged N, M over one, three and eight 128-tiles, D=1 and 5, one
@@ -355,6 +380,40 @@ def test_stream_kernels_match_plain(dev, kernel, N, M, D, B):
             cuda_sgpr.sgpr_stream2.launches) == (before[0] + 1, before[1] + 2)
 
 
+@pytest.mark.parametrize("slab", [128, 384])
+@pytest.mark.parametrize("B", [4, 140])
+def test_stream1_in_several_slabs(dev, slab, B, monkeypatch):
+    """stream1 with its slab cut to 128 and 384 data columns, so N=1100
+    (padded to 1152) runs in nine and three slabs (the last narrower), B
+    below and above the SM count: Bsum, a~ and trA2 rtol 2e-3, atol 2e-3 of
+    the largest entry against the plain version, against the one-slab launch
+    to rounding (rtol 1e-5), and a second launch repeats the first bit for
+    bit."""
+    from gpsat_tpu_torch.ops import cuda_cholinv, cuda_sgpr
+    params, X, y, m, Z, zm = make_sgpr_case(dev, B=B, N=1100, M=260, D=2,
+                                            seed=B + slab)
+    Xp, Zp, mf, zmf, ls, _, sf2, s2, ybar = cuda_sgpr._prepare(
+        params, X, y, m, Z, zm)
+    Kuu = cuda_sgpr._kuu(Zp / ls[:, None, :], zmf, sf2, "Matern32", 1e-6)[0]
+    W_u, _ = cuda_cholinv.cholinv_batched(Kuu)
+    xt, yt, zt, p = cuda_sgpr._pack_stream(Xp, mf, ybar, Zp, zmf, ls, sf2, s2)
+    one = cuda_sgpr.sgpr_stream1(xt, yt, zt, p, W_u, "Matern32", 2)
+    monkeypatch.setattr(cuda_sgpr, "_SLAB", slab)
+    got = cuda_sgpr.sgpr_stream1(xt, yt, zt, p, W_u, "Matern32", 2)
+    want = cuda_sgpr._stream1_plain(xt, yt, zt, p, W_u, "Matern32", 2)
+    for a, b, c, name in zip(got, want, one, ("Bsum", "at", "trA2")):
+        b = b.cpu().numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), b, rtol=2e-3,
+                                   atol=2e-3 * np.abs(b).max(), err_msg=name)
+        np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5 * np.abs(b).max(),
+                                   err_msg=name)
+    assert torch.equal(got[0], got[0].mT)
+    again = cuda_sgpr.sgpr_stream1(xt, yt, zt, p, W_u, "Matern32", 2)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("kernel,N,M,D", [
     ("Matern32", 300, 100, 3), ("Matern12", 230, 100, 3),
     ("Matern52", 230, 100, 3), ("RBF", 230, 100, 3),
@@ -387,6 +446,28 @@ def test_mega_kernel_matches_plain(dev, kernel, N, M, D):
                                                    jitter))
     assert (cuda_sgpr.sgpr_vg_mega.launches,
             cuda_sgpr.sgpr_stream1.launches) == (before[0] + 2, before[1])
+
+
+def test_mega_kernel_above_the_sm_count(dev):
+    """Route mega with B = 140 experts (more than an H100's 132 SMs), so its
+    stream1 build takes several items a block: value rtol 2e-4 atol 1e-3,
+    gradient lanes rtol 5e-3 and atol 5e-3 of the largest lane against the
+    plain version; a second launch repeats the first bit for bit."""
+    from gpsat_tpu_torch.ops import cuda_sgpr
+    params, X, y, m, Z, zm = make_sgpr_case(dev, B=140, N=1100, M=260, D=2,
+                                            seed=5)
+    Xp, Zp, mf, zmf, ls, _, sf2, s2, ybar = cuda_sgpr._prepare(
+        params, X, y, m, Z, zm)
+    xt, yt, zt, p = cuda_sgpr._pack_stream(Xp, mf, ybar, Zp, zmf, ls, sf2, s2)
+    got = cuda_sgpr.sgpr_vg_mega(xt, yt, zt, p, "Matern32", 2, 1e-6)
+    want = cuda_sgpr._mega_plain(xt, yt, zt, p, "Matern32", 2, 1e-6).cpu()
+    np.testing.assert_allclose(got[:, 0].cpu().numpy(), want[:, 0].numpy(),
+                               rtol=2e-4, atol=1e-3)
+    np.testing.assert_allclose(
+        got[:, 1:].cpu().numpy(), want[:, 1:].numpy(), rtol=5e-3,
+        atol=5e-3 * max(1.0, float(want[:, 1:].abs().max())))
+    assert torch.equal(got, cuda_sgpr.sgpr_vg_mega(xt, yt, zt, p, "Matern32",
+                                                   2, 1e-6))
 
 
 def test_mega_outside_its_gate_raises_on_the_card(dev):

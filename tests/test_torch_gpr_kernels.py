@@ -161,3 +161,20 @@ def test_c_entry_points_match_their_ctypes_signatures():
         assert m, name
         assert len(m.group(1).split(",")) == len(argtypes), name
     assert _build.BUILD_DIR.endswith("build/gpsat_tpu_torch")
+
+
+def test_profile_sums_each_port_kernels_cuda_kernels():
+    """profile_sweep's port_kernels_ms finds a kernel by the prefix of its
+    name, template arguments with spaces included (vg's factor runs
+    cholinv's step kernels on CiKernel<KID> at step 0)."""
+    from gpsat_tpu_torch.profile_sweep import _by_family
+    got = _by_family({
+        "void gp_cholinv_diag_kernel<CiKernel<1> >(CiKernel<1>, float*)":
+            (1000.0, 2),
+        "void gp_cholinv_diag_kernel<CiMatrix>(CiMatrix, float*)": (500.0, 3),
+        "gp_cholinv_inverse_kernel(float const*, float*, int, int)":
+            (250.0, 1),
+        "void gp_vg_grad_kernel<1>(float const*, float const*)": (2000.0, 1),
+        "void at::native::vectorized_elementwise_kernel<4>(int)": (9.0, 9)})
+    assert got == {"cholinv": {"ms": 1.75, "calls": 6},
+                   "nlml_vg": {"ms": 2.0, "calls": 1}}

@@ -6,8 +6,9 @@
 ROOT (default: this checkout) is a directory holding a `gpsat_tpu_torch`
 package; its kernels are built there and timed at the widths the bench
 sweeps give them (vg: 345 experts, predict and value: 512, N=400, P=400;
-cholinv, stream1, stream2: 48 experts, N=2000, M=500 padded to 512, and
-cholinv at the fill's 128 as well; Matern32, D=3, fixed random
+cholinv, stream1, stream2, sgpr_vg_mega: 48 experts, N=2000, M=500 padded
+to 512, and cholinv at the fill's 128 as well; cholinv_vg: cholinv alone on
+vg's 345 kernel matrices, N=400 padded to 448; Matern32, D=3, fixed random
 hyperparameters), by CUDA events over 20 warm launches. Prints one JSON line
 with the card's name and power limit. To compare two commits, unpack each
 with `git archive` and run this script on both in one job, in the order
@@ -74,6 +75,12 @@ def main():
         if name == "vg":
             out[name] = cuda_ms(
                 lambda: cuda_gpr._vg_launch(xt, yt, p, kernel, D))
+            # the factor under vg's many-blocks design, at its padding
+            xt64 = torch.zeros(E, 8, 448, device="cuda")
+            xt64[:, :, :xt.shape[2]] = xt
+            A = cuda_gpr._masked_matrix(xt64, p, kernel, D)[0].contiguous()
+            out["cholinv_vg"] = cuda_ms(
+                lambda: cuda_cholinv._cholinv_launch(A))
         elif name == "value":
             out[name] = cuda_ms(
                 lambda: cuda_gpr._value_launch(xt, yt, p, kernel, D))
@@ -106,6 +113,8 @@ def main():
         out["sgpr_stream2"] = cuda_ms(
             lambda: cuda_sgpr.sgpr_stream2(xt, yt, zt, p, W_u, Pm, dd, kernel,
                                            D))
+        out["sgpr_vg_mega"] = cuda_ms(
+            lambda: cuda_sgpr.sgpr_vg_mega(xt, yt, zt, p, kernel, D, 1e-6))
     print(json.dumps(out))
     return 0
 
