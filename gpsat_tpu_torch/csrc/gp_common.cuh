@@ -1,41 +1,33 @@
-// Device code shared by the GP kernels (gp_vg.cu, gp_predict.cu, gp_value.cu,
-// gp_cholinv.cu and, through gp_sgpr_common.cuh, gp_sgpr_stream.cu and
-// gp_sgpr_vg.cu).
+// Device code shared by the GP kernels (gp_cholinv.cu, gp_vg.cu,
+// gp_value.cu, gp_predict.cu and, through gp_sgpr_common.cuh,
+// gp_sgpr_stream.cu and gp_sgpr_vg.cu).
 //
 // Replaces the shared pieces of gpsat_tpu/ops/pallas_gpr.py: the correlation
-// functions _phi / _phi_grad (:64, :80) and the blocked factor + inverse
-// routine _factor_tile_and_invert (:157) together with the off-diagonal
-// W = U^{-1} block recurrence that _predict_kernel runs.
+// functions _phi / _phi_grad (:64, :80), the staging of one expert's scaled
+// coordinates, and the fixed-order sums that finish a kernel. The blocked
+// factor of _factor_tile_and_invert (:157) is gp_cholinv.cu's many-blocks
+// schedule, which the three exact-GPR kernels share.
 //
-// Layout of the one-block-per-expert routines (predict and value, one thread
-// block of GP_THREADS threads per expert):
-//   * the wrapper hands each block a workspace in device memory, row-major
-//     with leading dimension `ld`: U (A = U^T U, upper tiles only) at column
-//     offset 0 and W = U^{-1} (upper tiles only) at column offset Np. A 512x512
-//     f32 factor is 1 MiB, far beyond the 227 KB of shared memory an SM has,
-//     so the matrices live in device memory (mostly L2) and only GP_T x GP_T
-//     tiles are staged through shared memory.
-//   * the masked kernel matrix A is never stored: each tile of it is rebuilt
-//     from the coordinates in shared memory when the left-looking Cholesky
-//     reaches it.
-//   * every product is a GP_T x GP_T output tile accumulated over a
-//     multiple of GP_T by `tile_mma`; each thread owns a 2x2 micro-tile.
-//   * gp_cholinv.cu, gp_vg.cu and the stream kernels use the pipelined
-//     product gp_mma_pipe below instead (64x64 or 128x128 outputs, chunks
-//     copied ahead by cp.async) on grids of many blocks per expert.
-//
-// What bounds it on an H100: FP32 operations (~N^3 flops per expert against
-// ~20 N bytes of input). The one-block routines run on the CUDA cores at a
-// low share of the FP32 peak: the tile products are shared-memory bound and
-// the 32x32 diagonal factor runs on one warp.
+//   gp_phi, gp_phi_grad  the correlations and their lengthscale derivative
+//   gp_gpr_scale_kernel  xs = x / ls padded from Nx to M columns, y in row 6
+//                        and the mask in row 7: the layout every exact-GPR
+//                        kernel reads
+//   gp_nlml_warp         0.5 |z|^2 + ld + 0.5 n log 2 pi of one expert on
+//                        one warp, in a fixed order: the value kernel and
+//                        vg's value lane call it on the same factor, so the
+//                        two agree bit for bit
+//   gp_warp_sum, gp_block_sum  reductions over a warp and a block
+//   gp_mma_pipe          the pipelined FP32 tile product (64x64 or 128x128
+//                        outputs, chunks copied ahead by cp.async) of the
+//                        factor, vg's gradient pass and the stream kernels
+//   gp_launch, GP_DISPATCH  launch plumbing by kernel id
+// What bounds these kernels on an H100: FP32 operations on the CUDA cores
+// (~N^3 flops per expert against ~20 N bytes of input).
 #pragma once
 
 #include <cuda_runtime.h>
 
-#define GP_T 32             // tile edge
-#define GP_TS 33            // padded shared-memory row stride of a tile
-#define GP_THREADS 256      // threads per block (8 warps)
-#define GP_TILE_ELEMS (GP_T * GP_TS)
+#define GP_THREADS 256  // threads per block (8 warps)
 
 // kernel ids: the order of cuda_gpr._KERNEL_IDS
 enum GpKernelId { GP_MATERN12 = 0, GP_MATERN32 = 1, GP_MATERN52 = 2,
@@ -68,61 +60,22 @@ __device__ __forceinline__ float gp_phi_grad(float r2) {
   return expf(-0.5f * r) / (2.f * r);  // Exponential
 }
 
-// Views into the block's dynamic shared memory.
-struct GpShared {
-  float* As;     // [GP_T][GP_TS] tile_mma operand A (transposed: As[p][r])
-  float* Bs;     // [GP_T][GP_TS] tile_mma operand B (Bs[p][c])
-  float* St;     // [GP_T][GP_TS] diagonal tile being factored
-  float* Wt;     // [GP_T][GP_TS] inverse of the current diagonal tile
-  float* Ct;     // [GP_T][GP_TS] staging tile
-  float* red;    // [16][GP_TS] reductions
-  float* scal;   // [32] scalars (scal[0] = log det)
-  float* xs;     // [D][Np] coordinates / lengthscales
-  float* m;      // [Np] float mask
-  float* y;      // [Np] masked observations
-  float* t1;     // [Np] W^T y
-  float* alpha;  // [Np] W W^T y
-  float* xp;     // [D][Pp] prediction coordinates / lengthscales (predict)
-};
-
-// floats of dynamic shared memory for D dims, Np data and Pp prediction
-// points; the host computes the same number (gp_smem_bytes)
-static inline __host__ __device__ int gp_smem_floats(int D, int Np, int Pp) {
-  return 6 * GP_TILE_ELEMS + 32 + (D + 4) * Np + D * Pp;
-}
-
-static __device__ __forceinline__ GpShared gp_carve(float* sm, int D, int Np) {
-  GpShared s;
-  s.As = sm;
-  s.Bs = s.As + GP_TILE_ELEMS;
-  s.St = s.Bs + GP_TILE_ELEMS;
-  s.Wt = s.St + GP_TILE_ELEMS;
-  s.Ct = s.Wt + GP_TILE_ELEMS;
-  s.red = s.Ct + GP_TILE_ELEMS;
-  s.scal = s.red + GP_TILE_ELEMS;
-  s.xs = s.scal + 32;
-  s.m = s.xs + D * Np;
-  s.y = s.m + Np;
-  s.t1 = s.y + Np;
-  s.alpha = s.t1 + Np;
-  s.xp = s.alpha + Np;
-  return s;
-}
-
-// Stage one expert's inputs: xt [8][Np] (dims 0..D-1, mask in row 7),
-// yt [Np], p [8] (ls_0..ls_{D-1}, sf2 @5, noise @6).
-static __device__ __forceinline__ void gp_stage(const GpShared& s,
-                                                const float* xt,
-                                                const float* yt,
-                                                const float* p, int D,
-                                                int Np) {
-  for (int i = threadIdx.x; i < Np; i += GP_THREADS) {
-    for (int d = 0; d < D; ++d) s.xs[d * Np + i] = xt[d * Np + i] / p[d];
-    s.m[i] = xt[7 * Np + i];
-    s.y[i] = yt[i];
+// xs [B][8][M] <- xt [B][8][Nx] / ls in rows 0..D-1, yt [B][Nx] in row 6
+// (zeros where yt is null) and the mask (row 7 of xt) in row 7, all zero on
+// the columns from Nx to M; rows D..5 are not written. p [B][8] holds ls in
+// 0..D-1. One block per expert.
+static __global__ void __launch_bounds__(GP_THREADS)
+gp_gpr_scale_kernel(const float* xt, const float* yt, const float* p,
+                    float* xs, int Nx, int M, int D) {
+  const int e = blockIdx.x;
+  const float* x = xt + (size_t)e * 8 * Nx;
+  float* o = xs + (size_t)e * 8 * M;
+  for (int i = threadIdx.x; i < M; i += GP_THREADS) {
+    for (int d = 0; d < D; ++d)
+      o[d * M + i] = i < Nx ? x[d * Nx + i] / p[(size_t)e * 8 + d] : 0.f;
+    o[6 * M + i] = i < Nx && yt ? yt[(size_t)e * Nx + i] : 0.f;
+    o[7 * M + i] = i < Nx ? x[7 * Nx + i] : 0.f;
   }
-  if (threadIdx.x == 0) s.scal[0] = 0.f;
-  __syncthreads();
 }
 
 static __device__ __forceinline__ float gp_warp_sum(float v) {
@@ -143,38 +96,28 @@ static __device__ float gp_block_sum(float v, float* red) {
   return t;
 }
 
-// acc (this thread's 2x2 micro-tile of a GP_T x GP_T output) +=
-//   sum_{p < K} opA(r, p) * opB(p, c)
-// opA(r, p) = TA ? A[p*lda + r] : A[r*lda + p]
-// opB(p, c) = TB ? B[c*ldb + p] : B[p*ldb + c]
-// K is a multiple of GP_T. Both operands stream through shared memory in
-// GP_T x GP_T chunks with coalesced global reads.
-template <bool TA, bool TB>
-static __device__ void tile_mma(float acc[2][2], const float* A, int lda,
-                                const float* B, int ldb, int K,
-                                const GpShared& s) {
-  const int tid = threadIdx.x;
-  const int r0 = (tid >> 4) * 2, c0 = (tid & 15) * 2;
-  for (int k0 = 0; k0 < K; k0 += GP_T) {
-    for (int e = tid; e < GP_T * GP_T; e += GP_THREADS) {
-      const int i = e / GP_T, j = e % GP_T;
-      if (TA) s.As[i * GP_TS + j] = A[(size_t)(k0 + i) * lda + j];
-      else    s.As[j * GP_TS + i] = A[(size_t)i * lda + k0 + j];
-      if (TB) s.Bs[j * GP_TS + i] = B[(size_t)i * ldb + k0 + j];
-      else    s.Bs[i * GP_TS + j] = B[(size_t)(k0 + i) * ldb + j];
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int q = 0; q < GP_T; ++q) {
-      const float a0 = s.As[q * GP_TS + r0], a1 = s.As[q * GP_TS + r0 + 1];
-      const float b0 = s.Bs[q * GP_TS + c0], b1 = s.Bs[q * GP_TS + c0 + 1];
-      acc[0][0] += a0 * b0;
-      acc[0][1] += a0 * b1;
-      acc[1][0] += a1 * b0;
-      acc[1][1] += a1 * b1;
-    }
-    __syncthreads();
+// The NLML 0.5 |z|^2 + ld + 0.5 n log 2 pi of one expert from its solved
+// y column z (z[r * ldz], r < M) and mask m[r], computed by all 32 lanes of
+// a warp: lane l takes rows l, l + 32, ... in order, then a butterfly over
+// the lanes (every lane ends with the same sums: IEEE addition commutes).
+// Rounded operations only (no contraction left to the compiler), so that
+// every kernel that calls it on the same inputs gets the same bits.
+static __device__ float gp_nlml_warp(const float* z, int ldz, const float* m,
+                                     float ld, int M) {
+  const int lane = threadIdx.x & 31;
+  float q = 0.f, n = 0.f;
+  for (int r = lane; r < M; r += 32) {
+    const float v = z[(size_t)r * ldz];
+    q = __fmaf_rn(v, v, q);
+    n = __fadd_rn(n, m[r]);
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    q = __fadd_rn(q, __shfl_xor_sync(0xffffffffu, q, o));
+    n = __fadd_rn(n, __shfl_xor_sync(0xffffffffu, n, o));
+  }
+  return __fadd_rn(__fadd_rn(__fmul_rn(0.5f, q), ld),
+                   __fmul_rn(__fmul_rn(0.5f, n), 1.8378770664093453f));
 }
 
 // ---------------------------------------------------------------------------
@@ -335,229 +278,6 @@ static __device__ void gp_mma_pipe(float (&acc)[T / 16][T / 16],
     }
     __syncthreads();
   }
-}
-
-// Upper Cholesky of the GP_T x GP_T tile St in place (St = U^T U), zeros
-// below the diagonal; run by one warp, lane j owning column j. Adds
-// sum log diag U to *logdet. A non-positive pivot gives NaN, which spreads
-// through the expert's outputs (the linesearch reads NaN as a rejection).
-static __device__ void gp_chol_tile(float* St, float* logdet) {
-  const int lane = threadIdx.x & 31;
-  for (int c = 0; c < GP_T; ++c) {
-    const float piv = sqrtf(St[c * GP_TS + c]);
-    __syncwarp();
-    float v = 0.f;
-    if (lane > c) v = St[c * GP_TS + lane] / piv;
-    else if (lane == c) v = piv;
-    __syncwarp();
-    St[c * GP_TS + lane] = v;
-    __syncwarp();
-    for (int i = c + 1; i <= lane; ++i)
-      St[i * GP_TS + lane] -= St[c * GP_TS + i] * v;
-    __syncwarp();
-    if (lane == 0) *logdet += logf(piv);
-  }
-}
-
-// Wt = St^{-1} for the upper-triangular tile St (back substitution, lane j
-// solving column j); zeros below the diagonal.
-static __device__ void gp_inv_tile(const float* St, float* Wt) {
-  const int lane = threadIdx.x & 31;
-  for (int i = GP_T - 1; i >= 0; --i) {
-    float acc = (i == lane) ? 1.f : 0.f;
-    for (int q = i + 1; q <= lane; ++q)
-      acc -= St[i * GP_TS + q] * Wt[q * GP_TS + lane];
-    Wt[i * GP_TS + lane] = (i <= lane) ? acc / St[i * GP_TS + i] : 0.f;
-  }
-}
-
-// Masked noisy kernel matrix entry A[r][c] (ops/gpr.py _build_A):
-// sf2 phi(r2) m_r m_c, plus m_r (noise - 1) + 1 on the diagonal.
-template <int KID>
-static __device__ __forceinline__ float gp_kval(const GpShared& s, int r,
-                                                int c, int D, int Np,
-                                                float sf2, float noise) {
-  float r2 = 0.f;
-  for (int d = 0; d < D; ++d) {
-    const float dd = s.xs[d * Np + r] - s.xs[d * Np + c];
-    r2 += dd * dd;
-  }
-  r2 *= gp_scale<KID>();
-  float v = sf2 * gp_phi<KID>(r2) * (s.m[r] * s.m[c]);
-  if (r == c) v += s.m[r] * (noise - 1.f) + 1.f;
-  return v;
-}
-
-// Where gp_factor_from takes the entries of A from: rebuilt from the staged
-// coordinates.
-template <int KID>
-struct GpKernelSource {
-  const GpShared& s;
-  int D, Np;
-  float sf2, noise;
-  __device__ __forceinline__ float operator()(int r, int c) const {
-    return gp_kval<KID>(s, r, c, D, Np, sf2, noise);
-  }
-};
-
-// Blocked left-looking Cholesky A = U^T U, the factor half of
-// gp_factor_invert: tile row k of U is W_kk^T (A_k. - sum_{p<k} U_pk^T
-// U_p.), with the diagonal tile factored and inverted by one warp. `src(r, c)`
-// gives the entry of A (only upper tiles are asked for). U is an Np x Np
-// row-major view with leading dimension ldu; only its upper tiles are written
-// (diagonal tiles with explicit zeros below the diagonal) and only those are
-// read. `on_diag(k)` is called by every thread once diagonal tile k is done,
-// with U_kk in s.St, W_kk = U_kk^{-1} in s.Wt and tile rows < k of U in
-// device memory; the block synchronises after it. sum log diag U ends in
-// s.scal[0], which the caller zeroes before.
-template <typename Source, typename DiagHook>
-static __device__ void gp_factor_from(const Source& src, const GpShared& s,
-                                      float* U, int ldu, int Np,
-                                      const DiagHook& on_diag) {
-  const int tid = threadIdx.x;
-  const int r0 = (tid >> 4) * 2, c0 = (tid & 15) * 2;
-  const int nb = Np / GP_T;
-  for (int k = 0; k < nb; ++k) {
-    const int kT = k * GP_T;
-    for (int j = k; j < nb; ++j) {
-      const int jT = j * GP_T;
-      float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-      if (k > 0) tile_mma<true, false>(acc, U + kT, ldu, U + jT, ldu, kT, s);
-      float* C = (j == k) ? s.St : s.Ct;
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 2; ++b)
-          C[(r0 + a) * GP_TS + c0 + b] =
-              src(kT + r0 + a, jT + c0 + b) - acc[a][b];
-      __syncthreads();
-      if (j == k) {
-        if (tid < 32) {
-          gp_chol_tile(s.St, s.scal);
-          gp_inv_tile(s.St, s.Wt);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int a = 0; a < 2; ++a)
-#pragma unroll
-          for (int b = 0; b < 2; ++b)
-            U[(size_t)(kT + r0 + a) * ldu + kT + c0 + b] =
-                s.St[(r0 + a) * GP_TS + c0 + b];
-        on_diag(k);
-      } else {
-        // U_kj = W_kk^T C (W_kk upper: rows q <= r contribute)
-        float o[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-        for (int q = 0; q < GP_T; ++q) {
-          const float w0 = s.Wt[q * GP_TS + r0], w1 = s.Wt[q * GP_TS + r0 + 1];
-          const float x0 = s.Ct[q * GP_TS + c0], x1 = s.Ct[q * GP_TS + c0 + 1];
-          o[0][0] += w0 * x0;
-          o[0][1] += w0 * x1;
-          o[1][0] += w1 * x0;
-          o[1][1] += w1 * x1;
-        }
-#pragma unroll
-        for (int a = 0; a < 2; ++a)
-#pragma unroll
-          for (int b = 0; b < 2; ++b)
-            U[(size_t)(kT + r0 + a) * ldu + jT + c0 + b] = o[a][b];
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// gp_factor_from's hook of the factor + inverse: keep the diagonal tile of
-// W = U^{-1}.
-struct GpStoreDiagW {
-  const GpShared& s;
-  float* W;
-  int ldw;
-  __device__ __forceinline__ void operator()(int k) const {
-    const int r0 = (threadIdx.x >> 4) * 2, c0 = (threadIdx.x & 15) * 2;
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 2; ++b)
-        W[(size_t)(k * GP_T + r0 + a) * ldw + k * GP_T + c0 + b] =
-            s.Wt[(r0 + a) * GP_TS + c0 + b];
-  }
-};
-
-// The off-diagonal tiles of W = U^{-1} from U and W's diagonal tiles, by the
-// block recurrence W_ij = -W_ii sum_{i<q<=j} U_iq W_qj. Only upper tiles of
-// W (leading dimension ldw) are written and read.
-static __device__ void gp_invert_offdiag(const GpShared& s, const float* U,
-                                         int ldu, float* W, int ldw, int Np) {
-  const int tid = threadIdx.x;
-  const int r0 = (tid >> 4) * 2, c0 = (tid & 15) * 2;
-  const int nb = Np / GP_T;
-  for (int j = 1; j < nb; ++j) {
-    const int jT = j * GP_T;
-    for (int i = j - 1; i >= 0; --i) {
-      const int iT = i * GP_T;
-      float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-      tile_mma<false, false>(acc, U + (size_t)iT * ldu + iT + GP_T, ldu,
-                             W + (size_t)(iT + GP_T) * ldw + jT, ldw,
-                             jT - iT, s);
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 2; ++b)
-          s.Ct[(r0 + a) * GP_TS + c0 + b] = acc[a][b];
-      for (int e = tid; e < GP_T * GP_T; e += GP_THREADS) {
-        const int r = e / GP_T, c = e % GP_T;
-        s.Wt[r * GP_TS + c] = W[(size_t)(iT + r) * ldw + iT + c];
-      }
-      __syncthreads();
-      float o[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-      for (int q = 0; q < GP_T; ++q) {
-        const float w0 = s.Wt[r0 * GP_TS + q], w1 = s.Wt[(r0 + 1) * GP_TS + q];
-        const float x0 = s.Ct[q * GP_TS + c0], x1 = s.Ct[q * GP_TS + c0 + 1];
-        o[0][0] += w0 * x0;
-        o[0][1] += w0 * x1;
-        o[1][0] += w1 * x0;
-        o[1][1] += w1 * x1;
-      }
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 2; ++b)
-          W[(size_t)(iT + r0 + a) * ldw + jT + c0 + b] = -o[a][b];
-      __syncthreads();
-    }
-  }
-}
-
-// Factor (gp_factor_from) and full inverse W = U^{-1} (gp_invert_offdiag) of
-// the masked noisy kernel matrix of the staged expert; U and W share one
-// workspace of leading dimension ld. Returns sum log diag U in every thread.
-template <int KID>
-static __device__ float gp_factor_invert(const GpShared& s, float* U,
-                                         float* W, int ld, int D, int Np,
-                                         float sf2, float noise) {
-  const GpKernelSource<KID> src{s, D, Np, sf2, noise};
-  gp_factor_from(src, s, U, ld, Np, GpStoreDiagW{s, W, ld});
-  gp_invert_offdiag(s, U, ld, W, ld, Np);
-  return s.scal[0];
-}
-
-// t1 = W^T y and alpha = W t1 = A^{-1} y into shared memory.
-static __device__ void gp_alpha(const GpShared& s, const float* W, int ld,
-                                int Np) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int c = tid; c < Np; c += GP_THREADS) {
-    float a = 0.f;
-    for (int q = 0; q <= c; ++q) a += W[(size_t)q * ld + c] * s.y[q];
-    s.t1[c] = a;
-  }
-  __syncthreads();
-  for (int r = warp; r < Np; r += GP_THREADS / 32) {
-    float a = 0.f;
-    for (int q = r + lane; q < Np; q += 32) a += W[(size_t)r * ld + q] * s.t1[q];
-    a = gp_warp_sum(a);
-    if (lane == 0) s.alpha[r] = a;
-  }
-  __syncthreads();
 }
 
 // Common launch plumbing: opt in to the dynamic shared memory the block

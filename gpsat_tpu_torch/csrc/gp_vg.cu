@@ -15,14 +15,14 @@
 // Design: a fixed sequence of launches, each with a grid that fills the card
 // (many blocks per expert), instead of one block walking an expert's whole
 // factor:
-//   scale  xs = x / ls and the mask, padded to M                grid (B)
+//   scale  xs = x / ls, y and the mask, padded to M (gp_gpr_scale_kernel)
+//                                                              grid (B)
 //   factor gp_cholinv_kernel_launch: cholinv's right-looking schedule on
 //          64 x 64 tiles, whose step 0 rebuilds each tile of the masked
-//          noisy K from xs where it first reads it (K is never stored);
-//          W = U^{-1} and ld = 0.5 log det K, NaN for a pivot that is not
-//          positive, for that expert only                 4 M/64 - 3 grids
-//   t1     t1 = W^T y and each column tile's part of |t1|^2 = y^T K^{-1} y
-//                                                          grid (M/64, B)
+//          noisy K from xs where it first reads it (K is never stored),
+//          with y as its border: W = U^{-1}, ld = 0.5 log det K and t1 =
+//          z = U^{-T} y (by the diag and panel steps), NaN for a pivot that
+//          is not positive, for that expert only          4 M/64 - 3 grids
 //   alpha  alpha = W t1 = K^{-1} y                         grid (M/64, B)
 //   grad   one block per (upper 64 x 64 tile pair (r, c), expert): the tile
 //          K^{-1}_rc = sum_{q >= c} W_rq W_cq^T by gp_mma_pipe<64> (both
@@ -34,8 +34,10 @@
 //            d/dlog ls_j = 0.5 sum Q * sf2 F q2_j m m
 //            d/dnoise    = 0.5 sum_i Q_ii m_i
 //          into seven partial lanes per item          grid (pairs, B)
-//   finish out: the value 0.5 |t1|^2 + ld + 0.5 n log 2 pi, and lanes
-//          1..7 from the items' partials, each added in order
+//   finish one warp per expert: the value 0.5 |z|^2 + ld + 0.5 n log 2 pi
+//          by gp_nlml_warp, as gp_value.cu takes it from the same factor
+//          (the two agree bit for bit), and lanes 1..7 from the items'
+//          partials, each added in order
 // Every sum has a fixed order (no atomics): a second launch repeats the
 // first bit for bit. FP32 FMA on the CUDA cores.
 // Bound on an H100: FP32 operations (~N^3 per expert: the factor and the
@@ -46,9 +48,10 @@
 
 #define GV_T 64  // tile edge: CI_T of gp_cholinv.cu
 
-extern "C" int gp_cholinv_kernel_launch(const float* xs, const float* p,
-                                        float* W, float* ld, float* ws, int B,
-                                        int M, int D, int kernel_id,
+extern "C" int gp_cholinv_kernel_launch(const float* xs, const float* xp,
+                                        const float* p, float* W, float* ld,
+                                        float* ws, float* Z, float* z, int B,
+                                        int M, int Pk, int D, int kernel_id,
                                         void* stream);
 
 static inline int gv_pad(int Nx) { return (Nx + GV_T - 1) / GV_T * GV_T; }
@@ -57,11 +60,10 @@ static inline int gv_pad(int Nx) { return (Nx + GV_T - 1) / GV_T * GV_T; }
 struct GpVgWorkspace {
   size_t W;      // [B][M][M] W = U^{-1}
   size_t U;      // [B][M][M] cholinv's ws
-  size_t xs;     // [B][8][M] coordinates / lengthscales, mask in row 7
-  size_t t1;     // [B][M] W^T y
+  size_t z;      // [2][B][M] t1 = U^{-T} y, then the panels' residual
+  size_t xs;     // [B][8][M] coordinates / lengthscales, y, mask
   size_t alpha;  // [B][M]
   size_t part;   // [B][pairs][8]
-  size_t qpart;  // [B][M / GV_T]
   size_t ld;     // [B]
   size_t floats;
 };
@@ -72,65 +74,17 @@ static GpVgWorkspace gv_vg_layout(int B, int Nx) {
   size_t q = 0;
   w.W = q; q += b * m * m;
   w.U = q; q += b * m * m;
+  w.z = q; q += 2 * b * m;
   w.xs = q; q += b * 8 * m;
-  w.t1 = q; q += b * m;
   w.alpha = q; q += b * m;
   w.part = q; q += b * (nt * (nt + 1) / 2) * 8;
-  w.qpart = q; q += b * nt;
   w.ld = q; q += b;
   w.floats = q;
   return w;
 }
 
-// xs [B][8][M] <- xt / ls in rows 0..D-1 and the mask in row 7, zero on the
-// columns from Nx to M.
-__global__ void __launch_bounds__(GP_THREADS)
-gp_vg_scale_kernel(const float* xt, const float* p, float* xs, int Nx, int M,
-                   int D) {
-  const int e = blockIdx.x;
-  const float* x = xt + (size_t)e * 8 * Nx;
-  float* o = xs + (size_t)e * 8 * M;
-  for (int i = threadIdx.x; i < M; i += GP_THREADS) {
-    for (int d = 0; d < D; ++d)
-      o[d * M + i] = i < Nx ? x[d * Nx + i] / p[(size_t)e * 8 + d] : 0.f;
-    o[7 * M + i] = i < Nx ? x[7 * Nx + i] : 0.f;
-  }
-}
-
-// t1 = W^T y (= U^{-T} y): block (j, e) forms t1 on the 64 columns of tile
-// column j, four threads a column over interleaved rows q <= c (W is upper
-// triangular with exact zeros below the diagonal), added in order, and the
-// tile's part of y^T K^{-1} y = |t1|^2 into qpart[e][j] (a sum of squares:
-// the f32 value stays as close to f64 as a factorisation by substitution).
-__global__ void __launch_bounds__(GP_THREADS)
-gp_vg_t1_kernel(const float* yt, const float* W, float* t1, float* qpart,
-                int Nx, int M) {
-  __shared__ float y[1024], sum[4][GV_T];
-  const int e = blockIdx.y, cT = blockIdx.x * GV_T, tid = threadIdx.x;
-  const int c = tid & (GV_T - 1), part = tid / GV_T;
-  for (int i = tid; i < cT + GV_T; i += GP_THREADS)
-    y[i] = i < Nx ? yt[(size_t)e * Nx + i] : 0.f;
-  __syncthreads();
-  const float* We = W + (size_t)e * M * M + cT + c;
-  float a = 0.f;
-  for (int q = part; q <= cT + c; q += 4) a += We[(size_t)q * M] * y[q];
-  sum[part][c] = a;
-  __syncthreads();
-  if (tid < GV_T) {
-    const float t = sum[0][tid] + sum[1][tid] + sum[2][tid] + sum[3][tid];
-    t1[(size_t)e * M + cT + tid] = t;
-    sum[0][tid] = t * t;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.f;
-    for (int i = 0; i < GV_T; ++i) s += sum[0][i];
-    qpart[(size_t)e * gridDim.x + blockIdx.x] = s;
-  }
-}
-
-// alpha = W t1 = K^{-1} y: block (i, e) forms alpha on the 64 rows of tile
-// row i, a warp a row over q >= r.
+// alpha = W t1 = K^{-1} y with t1 = z = U^{-T} y: block (i, e) forms alpha
+// on the 64 rows of tile row i, a warp a row over q >= r.
 __global__ void __launch_bounds__(GP_THREADS)
 gp_vg_alpha_kernel(const float* W, const float* t1, float* alpha, int M) {
   __shared__ float t[1024];
@@ -231,25 +185,24 @@ gp_vg_grad_kernel(const float* xs, const float* p, const float* W,
   }
 }
 
-// out[e][0] = 0.5 |t1|^2 + ld + 0.5 n log 2 pi from the column tiles' parts
-// of |t1|^2; out[e][1..7] <- the partials of expert e's tile pairs; each
-// added in order.
-__global__ void gp_vg_finish_kernel(const float* part, const float* qpart,
-                                    const float* xs, const float* ld,
-                                    float* out, int B, int M) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B * 8) return;
-  const int e = i / 8, l = i % 8, nt = M / GV_T, pairs = nt * (nt + 1) / 2;
-  float s = 0.f;
-  if (l == 0) {
-    float n = 0.f;
-    for (int r = 0; r < M; ++r) n += xs[((size_t)e * 8 + 7) * M + r];
-    for (int t = 0; t < nt; ++t) s += qpart[(size_t)e * nt + t];
-    s = 0.5f * s + ld[e] + 0.5f * n * 1.8378770664093453f;
-  } else {
+// One warp per expert e: out[e][0] = 0.5 |z|^2 + ld + 0.5 n log 2 pi by
+// gp_nlml_warp, and out[e][1..7] <- the partials of the expert's tile
+// pairs, lane l adding lane l's in order.
+__global__ void __launch_bounds__(GP_THREADS)
+gp_vg_finish_kernel(const float* part, const float* z, const float* xs,
+                    const float* ld, float* out, int B, int M) {
+  const int e = blockIdx.x * (GP_THREADS / 32) + (threadIdx.x >> 5);
+  const int l = threadIdx.x & 31;
+  if (e >= B) return;
+  const int nt = M / GV_T, pairs = nt * (nt + 1) / 2;
+  const float v = gp_nlml_warp(z + (size_t)e * M, 1,
+                               xs + ((size_t)e * 8 + 7) * M, ld[e], M);
+  if (l == 0) out[(size_t)e * 8] = v;
+  if (l >= 1 && l < 8) {
+    float s = 0.f;
     for (int t = 0; t < pairs; ++t) s += part[((size_t)e * pairs + t) * 8 + l];
+    out[(size_t)e * 8 + l] = s;
   }
-  out[i] = s;
 }
 
 extern "C" long long gp_vg_ws_floats(int B, int Nx) {
@@ -262,18 +215,15 @@ extern "C" int gp_vg_launch(const float* xt, const float* yt, const float* p,
   cudaStream_t st = (cudaStream_t)stream;
   const GpVgWorkspace w = gv_vg_layout(B, Nx);
   const int M = gv_pad(Nx), nt = M / GV_T, pairs = nt * (nt + 1) / 2;
-  float *W = ws + w.W, *U = ws + w.U, *xs = ws + w.xs, *t1 = ws + w.t1,
-        *alpha = ws + w.alpha, *part = ws + w.part, *qpart = ws + w.qpart,
-        *ld = ws + w.ld;
-  gp_vg_scale_kernel<<<B, GP_THREADS, 0, st>>>(xt, p, xs, Nx, M, D);
+  float *W = ws + w.W, *U = ws + w.U, *z = ws + w.z, *xs = ws + w.xs,
+        *alpha = ws + w.alpha, *part = ws + w.part, *ld = ws + w.ld;
+  gp_gpr_scale_kernel<<<B, GP_THREADS, 0, st>>>(xt, yt, p, xs, Nx, M, D);
   int code = (int)cudaGetLastError();
   if (code != 0) return code;
-  code = gp_cholinv_kernel_launch(xs, p, W, ld, U, B, M, D, kernel_id,
-                                  stream);
+  code = gp_cholinv_kernel_launch(xs, nullptr, p, W, ld, U, nullptr, z, B,
+                                  M, 0, D, kernel_id, stream);
   if (code != 0) return code;
-  gp_vg_t1_kernel<<<dim3(nt, B), GP_THREADS, 0, st>>>(yt, W, t1, qpart, Nx,
-                                                      M);
-  gp_vg_alpha_kernel<<<dim3(nt, B), GP_THREADS, 0, st>>>(W, t1, alpha, M);
+  gp_vg_alpha_kernel<<<dim3(nt, B), GP_THREADS, 0, st>>>(W, z, alpha, M);
   code = (int)cudaGetLastError();
   if (code != 0) return code;
   {
@@ -283,8 +233,9 @@ extern "C" int gp_vg_launch(const float* xt, const float* yt, const float* p,
                 (const float*)alpha, part, M, D)
     if (code != 0) return code;
   }
-  gp_vg_finish_kernel<<<(B * 8 + 255) / 256, 256, 0, st>>>(part, qpart, xs,
-                                                          ld, out, B, M);
+  const int warps = GP_THREADS / 32;
+  gp_vg_finish_kernel<<<(B + warps - 1) / warps, GP_THREADS, 0, st>>>(
+      part, z, xs, ld, out, B, M);
   return (int)cudaGetLastError();
 }
 

@@ -419,9 +419,12 @@ class BatchedGPR:
         """Chunk width for the post-pool prediction/param-fill loop: the pool
         slot width on the torch path (it holds [B, N, N] temporaries); up to
         1024 experts per call when the fused prediction kernel runs, whose
-        workspace is [B, N, 2N + P] f32."""
+        workspace is [B, M, M + P + 2] f32 (N and P padded to 64: the
+        factor and its border). Only this class's own prediction runs that
+        kernel: a subclass that does not choose its width gets the pool's."""
         from gpsat_tpu_torch.parallel.scheduler import bucket_level
-        if do_predict and _kernel_path(self.device) and \
+        if do_predict and type(self) is BatchedGPR and \
+                _kernel_path(self.device) and \
                 cuda_gpr.cuda_predict_supported(self.kernel, self.d,
                                                 X.shape[1], Xs.shape[1]):
             return min(1024, bucket_level(E))

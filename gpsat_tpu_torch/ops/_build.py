@@ -48,6 +48,16 @@ _SIGNATURES = {
     "gp_sgpr_stream2_launch": [_P] * 10 + [_I] * 6 + [_P],
     # xt, yt, zt, p, out, ws, B, Np, Mp, D, G, jitter, kernel_id, stream
     "gp_sgpr_vg_launch": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _I, _P],
+    # xs, xp, p, W, ld, ws, Z, z, B, M, Pk, D, kernel_id, stream: the
+    # exact-GPR factor (tools/time_port_kernels.py times it alone)
+    "gp_cholinv_kernel_launch": [_P] * 8 + [_I] * 5 + [_P],
+}
+# floats of scratch a launch needs (long long results)
+_WS_SIGNATURES = {
+    "gp_vg_ws_floats": [_I] * 2,            # B, Np
+    "gp_value_ws_floats": [_I] * 2,         # B, Np
+    "gp_predict_ws_floats": [_I] * 3,       # B, Np, Pp
+    "gp_sgpr_vg_ws_floats": [_I] * 4,       # B, Np, Mp, G
 }
 
 
@@ -131,14 +141,12 @@ def load_library():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in _WS_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
     lib.gp_error_string.argtypes = [ctypes.c_int]
     lib.gp_error_string.restype = ctypes.c_char_p
-    # B, Np -> floats of scratch gp_vg_launch needs
-    lib.gp_vg_ws_floats.argtypes = [_I] * 2
-    lib.gp_vg_ws_floats.restype = ctypes.c_longlong
-    # B, Np, Mp, G -> floats of scratch gp_sgpr_vg_launch needs
-    lib.gp_sgpr_vg_ws_floats.argtypes = [_I] * 4
-    lib.gp_sgpr_vg_ws_floats.restype = ctypes.c_longlong
     return lib
 
 

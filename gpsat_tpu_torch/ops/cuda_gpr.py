@@ -3,21 +3,25 @@ only, and posterior prediction (torch counterpart of
 gpsat_tpu/ops/pallas_gpr.py).
 
 The CUDA sources are in ``gpsat_tpu_torch/csrc`` (built by ``ops/_build.py``
-at first use):
+at first use). The three kernels share one factorisation, as the TPU kernels
+share ``_factor_tile_and_invert``: the many-blocks schedule of
+``gp_cholinv.cu``, whose first step rebuilds the masked kernel matrix from
+the coordinates, with a border of right-hand sides solved along the way
+(z = U^{-T} y, and Z* = U^{-T} K* for prediction); N (and P) are padded to
+its 64-wide tile inside each launch.
 
-- ``gp_vg.cu``      replaces ``pallas_gpr._vg_kernel``: the NLML value and
-                    its analytic gradient on the many-blocks factor of
-                    ``gp_cholinv.cu`` (whose first step rebuilds the masked
-                    kernel matrix from the coordinates), then the K^{-1}
-                    tiles and the gradient lanes by tile pair; N is padded
-                    to that factor's 64-wide tile inside the launch.
-- ``gp_predict.cu`` replaces ``pallas_gpr._predict_kernel``: the same factor,
-                    then mean = Ks^T alpha and var = sf2 - ||W^T Ks||^2.
-- ``gp_value.cu``   replaces ``pallas_gpr._value_kernel``: the factor alone
-                    with the observations carried through it (z = U^{-T} y),
-                    value = 0.5 z.z + log det + 0.5 n log 2 pi.
-- ``gp_common.cuh`` the shared device code (``_phi``, ``_phi_grad`` and the
-                    factor/inverse routine ``_factor_tile_and_invert``).
+- ``gp_vg.cu``      replaces ``pallas_gpr._vg_kernel``: the factor with W =
+                    U^{-1} and the y border, then the K^{-1} tiles and the
+                    gradient lanes by tile pair.
+- ``gp_predict.cu`` replaces ``pallas_gpr._predict_kernel``: the factor with
+                    K* and y in its border, then mean = Z*^T z and
+                    var = sf2 - |Z*|^2 by column.
+- ``gp_value.cu``   replaces ``pallas_gpr._value_kernel``: the factor with
+                    the y border alone, value = 0.5 z.z + log det
+                    + 0.5 n log 2 pi by the function vg's value lane uses
+                    (the two agree bit for bit on the same inputs).
+- ``gp_common.cuh`` the shared device code (``_phi``, ``_phi_grad``, the
+                    scaling of the coordinates, the value's fixed-order sum).
 
 Wrappers (``nlml_vg_batched``, ``nlml_value_batched``,
 ``posterior_predict_batched``) keep the JAX signatures and output contract: raw-parameter gradients, the scalar-
@@ -31,8 +35,7 @@ The shape gates ``cuda_vg_supported`` / ``cuda_value_supported`` /
 ``pallas_value_supported`` / ``pallas_predict_supported``: kernel in
 the list, D <= 5, N padded to 128 at most 1024, P padded to 128 at most
 2048. The engine takes the ops/gpr path outside them. The packing pads N and
-P only to 32 (the predict and value kernels' tile); the vg launch pads N on
-to 64 in its own workspace.
+P only to 32; each launch pads on to 64 in its own workspace.
 """
 
 import math
@@ -48,7 +51,7 @@ __all__ = ["cuda_vg_supported", "nlml_vg_batched", "nlml_vg_batched_plain",
            "reset_launch_counts"]
 
 _MAX_D = 5
-_TILE = 32          # the kernels' tile edge (GP_T in csrc/gp_common.cuh)
+_TILE = 32          # the packing's padding unit
 _GATE_PAD = 128     # the JAX gates' padding unit
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -308,8 +311,9 @@ def _value_launch(xt, yt, p, kernel, D):
     out = torch.empty(B, dtype=torch.float32, device=xt.device)
     if B == 0:
         return out
-    ws = torch.empty(B, Np, Np, dtype=torch.float32, device=xt.device)
     lib = _build.load_library()
+    ws = torch.empty(lib.gp_value_ws_floats(B, Np), dtype=torch.float32,
+                     device=xt.device)
     with torch.cuda.device(xt.device):
         stream = torch.cuda.current_stream(xt.device).cuda_stream
         code = lib.gp_value_launch(xt.data_ptr(), yt.data_ptr(), p.data_ptr(),
@@ -387,9 +391,9 @@ def _predict_launch(xt, yt, p, xs, kernel, D):
     var = torch.empty(B, Pp, dtype=torch.float32, device=xt.device)
     if B == 0:
         return mean, var
-    ws = torch.empty(B, Np, 2 * Np + Pp, dtype=torch.float32,
-                     device=xt.device)
     lib = _build.load_library()
+    ws = torch.empty(lib.gp_predict_ws_floats(B, Np, Pp),
+                     dtype=torch.float32, device=xt.device)
     with torch.cuda.device(xt.device):
         stream = torch.cuda.current_stream(xt.device).cuda_stream
         code = lib.gp_predict_launch(

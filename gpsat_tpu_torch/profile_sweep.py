@@ -82,8 +82,10 @@ def _device_times(prof):
 
 
 # The CUDA kernels of each port kernel (a launch entry may enqueue several),
-# by the prefix of their names. nlml_vg's factor runs cholinv's kernels
-# (gp_cholinv_*), so in the gpr sweep the cholinv family is vg's factor.
+# by the prefix of their names. The exact-GPR kernels factor on cholinv's
+# kernels (gp_cholinv_*), so in the gpr sweep the cholinv family is vg's
+# factor and the fill's (posterior_predict's) factor; gp_gpr_scale_kernel,
+# their scale pass, is in no family.
 _FAMILIES = {"nlml_vg": "gp_vg_", "posterior_predict": "gp_predict_",
              "nlml_value": "gp_value_", "cholinv": "gp_cholinv_",
              "sgpr_stream1": "gp_sgpr_stream1_",

@@ -28,17 +28,56 @@ def _diag(S):
         torch.log(piv).sum(dim=1)
 
 
-def replay_tiles(tile0, B, M, dtype):
+def _y_solve(ws, z, r, k):
+    """The diag step's y column: U_kk^T z_k = r_k by forward substitution
+    down the 64 rows (r_0 = y_0; later the panels' residual)."""
+    cols = slice(k * T, (k + 1) * T)
+    v = r[:, cols].clone()
+    U = ws[:, cols, cols]
+    for i in range(T):
+        zi = v[:, i] / U[:, i, i]
+        v[:, i] = zi
+        v[:, i + 1:] = v[:, i + 1:] - U[:, i, i + 1:] * zi[:, None]
+    z[:, cols] = v
+
+
+def _y_residual(ws, z, r, k, j):
+    """The panel (k, j)'s part of the y column: r_j -= U_kj^T z_k, four
+    parts over 16 rows each, added in order."""
+    kT, cols = k * T, slice(j * T, (j + 1) * T)
+    parts = []
+    for part in range(4):
+        a = torch.zeros(ws.shape[0], T, dtype=ws.dtype)
+        for q in range(kT + 16 * part, kT + 16 * part + 16):
+            a = a + ws[:, q, cols] * z[:, q, None]
+        parts.append(a)
+    r[:, cols] = r[:, cols] - (parts[0] + parts[1] + parts[2] + parts[3])
+
+
+def replay_tiles(tile0, B, M, dtype, border0=None, nb=0, y=None,
+                 want_W=True):
     """(W, ld) of B masked SPD M x M matrices by gp_cholinv_launch's
     sequence: for each k diag, panel, update; then the inverse by tile
     offset. Step 0 takes tile (i, j) of A from tile0(i, j) [B, T, T], as the
     step kernels take it from their source (a matrix, or the kernel matrix
     rebuilt from coordinates); later steps read ws. Tile (i, j) of a buffer
-    X is X[:, iT:(i+1)T, jT:(j+1)T]."""
+    X is X[:, iT:(i+1)T, jT:(j+1)T].
+
+    With y [B, M] or nb > 0, gp_cholinv_kernel_launch's border rides along
+    and (W, ld, Z, z) is returned: the diag of step k also solves the y
+    column's rows k into z [B, M] (_y_solve) and the panels take them off the
+    residual of the rows below (_y_residual), and the border step after it
+    forms the nb tiles of row k of Z [B, M, nb T] left-looking, border0(k, j)
+    less U_.k^T times Z's rows above k (one full-depth product), solved with
+    U_kk. With want_W False the inverse is not formed (W is None)."""
     nt = M // T
-    ws = torch.full((B, M, M), float("nan"), dtype=dtype)
-    W = torch.full((B, M, M), float("nan"), dtype=dtype)
-    ld = torch.full((B,), float("nan"), dtype=dtype)
+    nan = float("nan")
+    ws = torch.full((B, M, M), nan, dtype=dtype)
+    W = torch.full((B, M, M), nan, dtype=dtype) if want_W else None
+    Z = torch.full((B, M, nb * T), nan, dtype=dtype)
+    z = torch.full((B, M), nan, dtype=dtype)
+    r = None if y is None else y.clone()     # y, then the panels' residual
+    ld = torch.full((B,), nan, dtype=dtype)
 
     def t(i, j):
         return slice(None), slice(i * T, (i + 1) * T), slice(j * T, (j + 1) * T)
@@ -48,8 +87,21 @@ def replay_tiles(tile0, B, M, dtype):
             return tile0(i, j) if k == 0 else ws[t(i, j)]
         Ukk, Wkk, lk = _diag(src(k, k))
         ws[t(k, k)] = Ukk
-        W[t(k, k)] = Wkk
+        if want_W:
+            W[t(k, k)] = Wkk
         ld = lk if k == 0 else ld + lk
+        if y is not None:
+            _y_solve(ws, z, r, k)
+        # the border step: one block a tile, the product over Z's final rows
+        # above k, then a triangular solve with U_kk from ws
+        rows = slice(0, k * T)
+        for j in range(nb):
+            cols = slice(j * T, (j + 1) * T)
+            x = border0(k, j)
+            if k > 0:
+                x = x - ws[:, rows, k * T:(k + 1) * T].mT @ Z[:, rows, cols]
+            Z[t(k, j)] = torch.linalg.solve_triangular(ws[t(k, k)].mT, x,
+                                                       upper=False)
         # one block a tile, a triangular solve with U_kk from ws: every block
         # reads before any writes
         panels = {j: torch.linalg.solve_triangular(
@@ -57,11 +109,13 @@ def replay_tiles(tile0, B, M, dtype):
         for j, U in panels.items():
             ws[t(k, j)] = U
             ws[t(j, k)] = U.mT
+            if y is not None:
+                _y_residual(ws, z, r, k, j)
         updates = {(i, j): src(i, j) - ws[t(k, i)].mT @ ws[t(k, j)]
                    for i in range(k + 1, nt) for j in range(i, nt)}
         for (i, j), v in updates.items():
             ws[t(i, j)] = v
-    for d in range(1, nt):
+    for d in range(1, nt if want_W else 0):
         out = {}
         for i in range(nt - d):
             j = i + d
@@ -72,7 +126,9 @@ def replay_tiles(tile0, B, M, dtype):
         for i, v in out.items():
             W[t(i, i + d)] = v
             W[t(i + d, i)] = 0.0
-    return W, ld
+    if y is None and not nb:
+        return W, ld
+    return W, ld, Z, z
 
 
 def replay(A):

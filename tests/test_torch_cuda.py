@@ -149,7 +149,8 @@ def test_outside_the_gate_raises_on_the_card(dev):
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_value_kernel_matches_plain(dev, kernel):
     """The value-only kernel against its plain version and against the
-    value+gradient kernel's value: rtol 2e-5, atol 1e-3; one launch."""
+    value+gradient kernel's value: rtol 2e-5, atol 1e-3, and bit for bit the
+    latter; one launch."""
     params, X, y, m, _ = make_case(dev)
     before = cuda_gpr.nlml_value_batched.launches
     got = cuda_gpr.nlml_value_batched(params, X, y, m, kernel, 1e-6)
@@ -161,6 +162,40 @@ def test_value_kernel_matches_plain(dev, kernel):
     val, _ = cuda_gpr.nlml_vg_batched(params, X, y, m, kernel, 1e-6)
     np.testing.assert_allclose(got.cpu().numpy(), val.cpu().numpy(),
                                rtol=2e-5, atol=1e-3)
+    assert torch.equal(got, val)   # one factor, one finishing sum
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("B", [1, 48, 513])
+def test_predict_and_value_on_the_bordered_factor(dev, kernel, B):
+    """At the main path's widths (N=400 packed to 416 and padded to 448,
+    P=400), B below, near and above the card's SM count and beyond the gpr
+    sweep's 512: predict and value against their plain versions (rtol 1e-3
+    atol 1e-4; rtol 2e-5 atol 1e-3), a second launch bit for bit the first,
+    and the value kernel bit for bit the vg kernel's lane 0. The noise is
+    raised by 0.3, as in test_vg_kernel_pads_to_its_tile_and_repeats: with
+    make_case's noise down to 0.01 at N=400, a few of 513 experts are where
+    f32 predictions (torch.linalg's and the kernel's alike) are off f64 by
+    more than atol 1e-4, so two f32 versions part beyond it."""
+    params, X, y, m, Xs = make_case(dev, B=B, N=400, P=400, seed=B)
+    params["likelihood_variance"] = params["likelihood_variance"] + 0.3
+    pr = cuda_gpr.posterior_predict_batched(params, X, y, m, Xs, kernel, 1e-6)
+    assert_pred_close(pr, cuda_gpr.posterior_predict_batched_plain(
+        params, X, y, m, Xs, kernel, 1e-6))
+    again = cuda_gpr.posterior_predict_batched(params, X, y, m, Xs, kernel,
+                                               1e-6)
+    for k in pr:
+        assert torch.equal(pr[k], again[k]), k
+    val = cuda_gpr.nlml_value_batched(params, X, y, m, kernel, 1e-6)
+    np.testing.assert_allclose(
+        val.cpu().numpy(),
+        cuda_gpr.nlml_value_batched_plain(params, X, y, m, kernel,
+                                          1e-6).cpu().numpy(),
+        rtol=2e-5, atol=1e-3)
+    assert torch.equal(val, cuda_gpr.nlml_value_batched(params, X, y, m,
+                                                        kernel, 1e-6))
+    vg, _ = cuda_gpr.nlml_vg_batched(params, X, y, m, kernel, 1e-6)
+    assert torch.equal(val, vg)
 
 
 @pytest.mark.parametrize("N,D", [(5, 1), (37, 2), (128, 5), (256, 2),
@@ -193,7 +228,7 @@ def test_value_kernel_scalar_lengthscale_and_non_pd(dev):
 
 def test_bulk_nlml_on_the_card(dev):
     """make_gpr_value_fun on CUDA tensors goes through the value kernel once
-    and agrees with make_gpr_vg_fun's value at the same u."""
+    and agrees with make_gpr_vg_fun's value at the same u, bit for bit."""
     from gpsat_tpu_torch.models.exact_gpr import (make_gpr_value_fun,
                                                   make_gpr_vg_fun)
     from gpsat_tpu_torch.ops.transforms import Softplus
@@ -210,6 +245,7 @@ def test_bulk_nlml_on_the_card(dev):
     want, _ = make_gpr_vg_fun("Matern32", names, 3)(*args)
     np.testing.assert_allclose(val.cpu().numpy(), want.cpu().numpy(),
                                rtol=2e-5, atol=1e-3)
+    assert torch.equal(val, want)
 
 
 def test_engine_on_the_card_matches_the_host_engine(dev):

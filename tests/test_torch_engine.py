@@ -268,6 +268,24 @@ def test_kernel_path_on_cpu_follows_the_f64_engine(monkeypatch):
                                atol=1e-2)
 
 
+def test_fill_chunk_width_of_a_subclass_is_the_pool_width(monkeypatch):
+    """The reference's guard (gpsat_tpu/models/batched.py, type(self) is
+    BatchedGPR): on the kernel path BatchedGPR's own fill runs up to 1024
+    experts a chunk through the prediction kernel; a subclass that does not
+    choose its width gets the pool's, as without the kernel."""
+    class Sub(TorchGPR):
+        pass
+    X, _, _, Xs = workload(4, 40, 16)
+    monkeypatch.setattr(cuda_gpr, "_FORCE_KERNEL_PATH", True)
+    for cls, want in ((TorchGPR, 512), (Sub, 7)):
+        eng = cls(device="cpu", dtype=torch.float32, **engine_kwargs())
+        assert eng._fill_chunk_width(300, X, Xs, 7, True) == want
+        assert eng._fill_chunk_width(300, X, Xs, 7, False) == 7
+    monkeypatch.setattr(cuda_gpr, "_FORCE_KERNEL_PATH", False)
+    eng = TorchGPR(device="cpu", dtype=torch.float32, **engine_kwargs())
+    assert eng._fill_chunk_width(300, X, Xs, 7, True) == 7
+
+
 def test_vg_fun_chain_rule_matches_autograd():
     """make_gpr_vg_fun (kernel gradients + autograd.grad of the bijector
     map) agrees with autograd through the objective."""

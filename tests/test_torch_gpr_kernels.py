@@ -152,14 +152,20 @@ def test_c_entry_points_match_their_ctypes_signatures():
                      "gp_sgpr_common.cuh", "gp_sgpr_stream.cu",
                      "gp_sgpr_vg.cu", "gp_value.cu", "gp_vg.cu"]
     assert sorted(_build._SIGNATURES) == [
-        "gp_cholinv_launch", "gp_predict_launch", "gp_sgpr_stream1_launch",
-        "gp_sgpr_stream2_launch", "gp_sgpr_vg_launch", "gp_value_launch",
-        "gp_vg_launch"]
+        "gp_cholinv_kernel_launch", "gp_cholinv_launch", "gp_predict_launch",
+        "gp_sgpr_stream1_launch", "gp_sgpr_stream2_launch",
+        "gp_sgpr_vg_launch", "gp_value_launch", "gp_vg_launch"]
+    assert sorted(_build._WS_SIGNATURES) == [
+        "gp_predict_ws_floats", "gp_sgpr_vg_ws_floats", "gp_value_ws_floats",
+        "gp_vg_ws_floats"]
     text = "".join(open(p).read() for p in cu)
-    for name, argtypes in _build._SIGNATURES.items():
-        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
-        assert m, name
-        assert len(m.group(1).split(",")) == len(argtypes), name
+    for ret, table in (("int", _build._SIGNATURES),
+                       ("long long", _build._WS_SIGNATURES)):
+        for name, argtypes in table.items():
+            m = re.search(r'extern "C" ' + ret + " " + name
+                          + r"\(([^)]*)\)", text)
+            assert m, name
+            assert len(m.group(1).split(",")) == len(argtypes), name
     assert _build.BUILD_DIR.endswith("build/gpsat_tpu_torch")
 
 

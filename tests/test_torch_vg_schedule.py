@@ -4,9 +4,11 @@ _vg_kernel (Pallas, interpret mode, f32). The CUDA kernels run only on the
 card; this replay reads and writes the same tiles of the same buffers in the
 same launch order (scratch starts as NaN, so a tile read before its producer
 ran shows): the scale pass, cholinv's schedule with step 0 rebuilding the
-tiles of K from the scaled coordinates, t1 = W^T y and |t1|^2 by column
-tile, alpha = W t1 by row tile, the gradient items over the upper 64 x 64 tile pairs, and
-the fixed-order sums of the value and of the items' partial lanes."""
+tiles of K from the scaled coordinates and y riding in its border (t1 =
+U^{-T} y, solved by the diag steps), alpha = W t1 by row tile, the gradient
+items over the upper
+64 x 64 tile pairs, and the fixed-order sums of the value (gp_nlml_warp,
+shared with the value kernel) and of the items' partial lanes."""
 
 import math
 
@@ -25,6 +27,71 @@ T = 64  # GV_T in csrc/gp_vg.cu (CI_T of gp_cholinv.cu)
 KERNELS = ["Matern32", "Matern12", "Matern52", "RBF", "Exponential"]
 
 
+def scale(xt, yt, p, D, M):
+    """gp_gpr_scale_kernel: xs = x / ls in rows 0..D-1, y in row 6, the mask
+    in row 7, zero past Nx (rows D..5 are never written, and never read);
+    yt None gives zeros in row 6."""
+    B, _, Nx = xt.shape
+    xs = torch.full((B, 8, M), float("nan"), dtype=xt.dtype)
+    xs[:, list(range(D)) + [6, 7], Nx:] = 0.0
+    xs[:, :D, :Nx] = xt[:, :D] / p[:, :D, None]
+    xs[:, 6, :Nx] = 0.0 if yt is None else yt
+    xs[:, 7, :Nx] = xt[:, 7]
+    return xs
+
+
+def q2_r2(xa, xb, kernel, D):
+    """Per-dimension scaled squared distances and their sum between the
+    columns of xa [B, 8, R] and xb [B, 8, C], summed over d in order."""
+    scale_ = _KERNELS[kernel]
+    q2 = [(xa[:, d, :, None] - xb[:, d, None, :]) ** 2 * scale_
+          for d in range(D)]
+    r2 = q2[0]
+    for q in q2[1:]:
+        r2 = r2 + q
+    return q2, r2
+
+
+def kernel_tiles(xs, p, kernel, D):
+    """CiKernel: tile (i, j) of the masked noisy K where step 0 reads it."""
+    def ktile(i, j):
+        rows, cols = slice(i * T, (i + 1) * T), slice(j * T, (j + 1) * T)
+        _, r2 = q2_r2(xs[:, :, rows], xs[:, :, cols], kernel, D)
+        mr, mc = xs[:, 7, rows], xs[:, 7, cols]
+        v = p[:, 5, None, None] * _phi(kernel, r2) * (mr[:, :, None]
+                                                      * mc[:, None, :])
+        if i == j:
+            v = v + torch.diag_embed(mr * (p[:, 6, None] - 1.0) + 1.0)
+        return v
+    return ktile
+
+
+def border_tiles(xs, xp, p, kernel, D):
+    """CiBorderKernel: tile (i, j) of K*_rc = sf2 phi(x_r, xp_c) m_r, xp
+    [B, 8, Pk], where the border step reads it."""
+    def btile(i, j):
+        rows, cols = slice(i * T, (i + 1) * T), slice(j * T, (j + 1) * T)
+        _, r2 = q2_r2(xs[:, :, rows], xp[:, :, cols], kernel, D)
+        return p[:, 5, None, None] * _phi(kernel, r2) * xs[:, 7, rows, None]
+    return btile
+
+
+def nlml_warp(z, m, ld):
+    """gp_nlml_warp: lane l sums z_r^2 and m_r over rows l, l + 32, ... in
+    order, then a butterfly over the 32 lanes; 0.5 q + ld + 0.5 n log 2 pi."""
+    B, M = z.shape
+    q = torch.zeros(B, 32, dtype=z.dtype)
+    n = torch.zeros(B, 32, dtype=z.dtype)
+    for r in range(M):
+        q[:, r % 32] = q[:, r % 32] + z[:, r] * z[:, r]
+        n[:, r % 32] = n[:, r % 32] + m[:, r]
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        q = q + q[:, lanes ^ o]
+        n = n + n[:, lanes ^ o]
+    return 0.5 * q[:, 0] + ld + 0.5 * n[:, 0] * math.log(2.0 * math.pi)
+
+
 def replay(xt, yt, p, kernel, D):
     """[B, 8] lanes of packed inputs (xt [B, 8, Nx], Nx a multiple of 32)
     by gp_vg_launch's sequence, in xt's dtype."""
@@ -33,47 +100,12 @@ def replay(xt, yt, p, kernel, D):
     nt = M // T
     dt = xt.dtype
     nan = float("nan")
-    scale = _KERNELS[kernel]
 
-    # scale: xs = x / ls in rows 0..D-1, the mask in row 7, zero past Nx
-    # (rows D..6 are never written, and never read)
-    xs = torch.full((B, 8, M), nan, dtype=dt)
-    xs[:, :D, Nx:] = 0.0
-    xs[:, 7, Nx:] = 0.0
-    xs[:, :D, :Nx] = xt[:, :D] / p[:, :D, None]
-    xs[:, 7, :Nx] = xt[:, 7]
+    xs = scale(xt, yt, p, D, M)
+    W, ld, _, t1 = replay_tiles(kernel_tiles(xs, p, kernel, D), B, M, dt,
+                                y=xs[:, 6])
 
-    def q2_r2(rows, cols):
-        q2 = [(xs[:, d, rows, None] - xs[:, d, None, cols]) ** 2 * scale
-              for d in range(D)]
-        r2 = q2[0]
-        for q in q2[1:]:
-            r2 = r2 + q
-        return q2, r2
-
-    def ktile(i, j):   # CiKernel: the tile where step 0 first reads it
-        rows, cols = slice(i * T, (i + 1) * T), slice(j * T, (j + 1) * T)
-        _, r2 = q2_r2(rows, cols)
-        mr, mc = xs[:, 7, rows], xs[:, 7, cols]
-        v = p[:, 5, None, None] * _phi(kernel, r2) * (mr[:, :, None]
-                                                      * mc[:, None, :])
-        if i == j:
-            v = v + torch.diag_embed(mr * (p[:, 6, None] - 1.0) + 1.0)
-        return v
-
-    W, ld = replay_tiles(ktile, B, M, dt)
-
-    # t1 = W^T y by column tile, with each tile's part of |t1|^2; alpha =
-    # W t1 by row tile
-    y = torch.zeros(B, M, dtype=dt)
-    y[:, :Nx] = yt
-    t1 = torch.full((B, M), nan, dtype=dt)
-    qpart = torch.full((B, nt), nan, dtype=dt)
-    for j in range(nt):
-        cols = slice(j * T, (j + 1) * T)
-        t1[:, cols] = (W[:, :(j + 1) * T, cols]
-                       * y[:, :(j + 1) * T, None]).sum(dim=1)
-        qpart[:, j] = (t1[:, cols] * t1[:, cols]).sum(dim=1)
+    # alpha = W t1 by row tile
     alpha = torch.full((B, M), nan, dtype=dt)
     for i in range(nt):
         rows = slice(i * T, (i + 1) * T)
@@ -87,7 +119,7 @@ def replay(xt, yt, p, kernel, D):
         rows, cols = slice(i * T, (i + 1) * T), slice(j * T, (j + 1) * T)
         kinv = W[:, rows, j * T:] @ W[:, cols, j * T:].mT
         qp = kinv - alpha[:, rows, None] * alpha[:, None, cols]
-        q2, r2 = q2_r2(rows, cols)
+        q2, r2 = q2_r2(xs[:, :, rows], xs[:, :, cols], kernel, D)
         mr = xs[:, 7, rows]
         mm = mr[:, :, None] * xs[:, 7, None, cols]
         wsym = 0.5 if i == j else 1.0
@@ -100,14 +132,10 @@ def replay(xt, yt, p, kernel, D):
             dim=(1, 2))
         part[:, t, 7] = (0.5 * (torch.diagonal(qp, dim1=1, dim2=2)
                                 * mr).sum(dim=1) if i == j else 0.0)
-    # finish: the value from the column tiles' parts of |t1|^2, the lanes
-    # from the items' partials, each added in order
+    # finish: the value by gp_nlml_warp, the lanes from the items' partials,
+    # each added in order
     out = torch.full((B, 8), nan, dtype=dt)
-    q = qpart[:, 0]
-    for i in range(1, nt):
-        q = q + qpart[:, i]
-    out[:, 0] = 0.5 * q + ld + 0.5 * xs[:, 7].sum(dim=1) * math.log(
-        2.0 * math.pi)
+    out[:, 0] = nlml_warp(t1, xs[:, 7], ld)
     for l in range(1, 8):
         s = part[:, 0, l]
         for t in range(1, len(pairs)):

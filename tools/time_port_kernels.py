@@ -8,8 +8,11 @@ package; its kernels are built there and timed at the widths the bench
 sweeps give them (vg: 345 experts, predict and value: 512, N=400, P=400;
 cholinv, stream1, stream2, sgpr_vg_mega: 48 experts, N=2000, M=500 padded
 to 512, and cholinv at the fill's 128 as well; cholinv_vg: cholinv alone on
-vg's 345 kernel matrices, N=400 padded to 448; Matern32, D=3, fixed random
-hyperparameters), by CUDA events over 20 warm launches. Prints one JSON line
+vg's 345 kernel matrices, N=400 padded to 448; cholinv_factor: the
+exact-GPR factor alone, with no W = U^{-1} and no border, on 512 kernel
+matrices rebuilt from the coordinates (gp_cholinv_kernel_launch, where the
+checkout has it); Matern32, D=3, fixed random hyperparameters), by CUDA
+events over 20 warm launches. Prints one JSON line
 with the card's name and power limit. To compare two commits, unpack each
 with `git archive` and run this script on both in one job, in the order
 parent, change, change, parent: two jobs may land on two cards.
@@ -41,6 +44,27 @@ def cuda_ms(fn):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / REPS
+
+
+def factor_alone(lib, xt, p, kernel_id, D):
+    """A launcher of gp_cholinv_kernel_launch with W and the border skipped
+    on the packed inputs, N padded to the factor's 64-wide tile."""
+    from gpsat_tpu_torch.ops import _build
+    E, _, Nx = xt.shape
+    M = -(-Nx // 64) * 64
+    xs = torch.zeros(E, 8, M, device="cuda")
+    xs[:, :D, :Nx] = xt[:, :D] / p[:, :D, None]
+    xs[:, 7, :Nx] = xt[:, 7]
+    ws = torch.empty(E, M, M, device="cuda")
+    ld = torch.empty(E, device="cuda")
+
+    def run():
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib, lib.gp_cholinv_kernel_launch(
+            xs.data_ptr(), None, p.data_ptr(), None, ld.data_ptr(),
+            ws.data_ptr(), None, None, E, M, 0, D, kernel_id, stream),
+            "gp_cholinv_kernel_launch")
+    return run
 
 
 def main():
@@ -84,6 +108,10 @@ def main():
         elif name == "value":
             out[name] = cuda_ms(
                 lambda: cuda_gpr._value_launch(xt, yt, p, kernel, D))
+            if "gp_cholinv_kernel_launch" in _build._SIGNATURES:
+                out["cholinv_factor"] = cuda_ms(factor_alone(
+                    _build.load_library(), xt, p,
+                    cuda_gpr._KERNEL_IDS[kernel], D))
         else:
             out[name] = cuda_ms(
                 lambda: cuda_gpr._predict_launch(xt, yt, p, xs, kernel, D))
