@@ -11,7 +11,9 @@ Phases (any failure exits non-zero; nothing is caught):
      Matern32 and RBF) and at the batch widths the main path gives them; the
      SGPR kernels (cholinv, stream1, stream2, the one-launch value+gradient
      of route "mega") on the bench `sgpr` recipe (N=2000, M=500 padded to
-     512, D=3, Matern32 and RBF) at B=64 and at the main path's widths;
+     512, D=3, Matern32 and RBF) at B=64 and at the main path's widths, and
+     at those widths route mega's own gv_* kernels by torch.profiler beside
+     the same four products as torch.matmul;
   3. drive BatchedGPR.fit_predict_many on the bench `gpr` workload (E=512,
      N=400, P=400, D=3, f32): convergence, finite predictions, agreement with
      an f64 torch.linalg evaluation on all experts, both kernels launched;
@@ -603,6 +605,33 @@ def time_sgpr_kernels(kernel, packed, counts, mats):
     return rows
 
 
+def time_gv_share(kernel, packed, mats):
+    """Route mega's own kernels in one sgpr_vg_mega call, by torch.profiler
+    (device_profile.gv_share_ms): {"products": the four P6 products, "p5":
+    the P5 matvecs and scalars, "rest": Kuu, I + Bsum, the finish} in ms,
+    "products_bound_ms": their useful FP32 flops (11/3 Mp^3 an expert: T1,
+    P and T2 with a triangular operand, Kbar_uu's upper pairs) over the
+    peak, and "matmul_ms": the same four products as torch.matmul on the
+    same tensors (TF32 off; full products), the library yardstick."""
+    from gpsat_tpu_torch.ops import cuda_cholinv, cuda_sgpr
+    from gpsat_tpu_torch.device_profile import gv_share_ms
+    xt, yt, zt, p = packed
+    _, Bm, W_u, _, _ = mats
+    B, Mp = Bm.shape[0], Bm.shape[1]
+    Bsum = Bm - torch.eye(Mp, device="cuda")
+    W_B = cuda_cholinv.cholinv_batched(Bm)[0]
+
+    def matmuls():
+        T1 = W_B.mT @ Bsum
+        P = W_B @ T1
+        return W_u @ ((Bsum - P) @ W_u.mT)
+    out = gv_share_ms(
+        lambda: cuda_sgpr.sgpr_vg_mega(xt, yt, zt, p, kernel, D, 1e-6), REPS)
+    out["products_bound_ms"] = bound_ms(B * 11.0 / 3.0 * Mp ** 3, 0)[0]
+    out["matmul_ms"] = cuda_ms(matmuls)
+    return out
+
+
 def phase_sgpr_kernels(workload, engine, widths):
     """cholinv, stream1, stream2 and the one-launch value + gradient against
     their plain versions: B=64 for Matern32 and RBF, then Matern32 at the
@@ -637,6 +666,18 @@ def phase_sgpr_kernels(workload, engine, widths):
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
             if width == widths["pool"]:
                 rows[key] = {"max_abs_err": max(err[key], errs[key]), **r}
+        gv = time_gv_share("Matern32", packed, mats)
+        require(gv["products"] > 0 and gv["p5"] > 0,
+                f"no gv_* kernel in the profile of sgpr_vg_mega: {gv}")
+        print(f"kernel sgpr_vg_mega Matern32 at width B={width}, its own "
+              f"gv_* kernels: P6 products {gv['products']:.4f} ms (bound "
+              f"{gv['products_bound_ms']:.4f} ms; torch.matmul of the four "
+              f"products {gv['matmul_ms']:.4f} ms), P5 {gv['p5']:.4f} ms, "
+              f"rest {gv['rest']:.4f} ms")
+        if width == widths["pool"]:
+            rows["sgpr_vg_mega"].update(
+                {"gv_" + k + ("" if k.endswith("_ms") else "_ms"): v
+                 for k, v in gv.items()})
         require(times["cholinv"]["ms"] < times["cholinv"]["library_ms"],
                 f"cholinv at B={width} is slower than torch.linalg: "
                 f"{times['cholinv']}")

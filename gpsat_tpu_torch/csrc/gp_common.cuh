@@ -19,7 +19,7 @@
 //   gp_warp_sum, gp_block_sum  reductions over a warp and a block
 //   gp_mma_pipe          the pipelined FP32 tile product (64x64 or 128x128
 //                        outputs, chunks copied ahead by cp.async) of the
-//                        factor, vg's gradient pass and the stream kernels
+//                        factor, vg's gradient pass and every SGPR kernel
 //   gp_launch, GP_DISPATCH  launch plumbing by kernel id
 // What bounds these kernels on an H100: FP32 operations on the CUDA cores
 // (~N^3 flops per expert against ~20 N bytes of input).
@@ -121,8 +121,8 @@ static __device__ float gp_nlml_warp(const float* z, int ldz, const float* m,
 }
 
 // ---------------------------------------------------------------------------
-// gp_mma_pipe: the pipelined tile product of gp_cholinv.cu, gp_vg.cu and the
-// stream kernels of gp_sgpr_stream.cu.
+// gp_mma_pipe: the pipelined tile product of gp_cholinv.cu, gp_vg.cu,
+// gp_sgpr_stream.cu and gp_sgpr_vg.cu.
 //
 // acc (this thread's (T/16) x (T/16) micro-tile of a T x T output, T = 64 or
 // 128, GP_THREADS threads) += sum_{p < K} opA(r, p) * opB(p, c)

@@ -1,34 +1,23 @@
 // Device code shared by the SGPR kernels (gp_sgpr_stream.cu, gp_sgpr_vg.cu):
-// the 64x64 tile product gs_mma64, the staging of inducing points and data
-// panels, and the routines that build one Kuf panel and one A~ = W_u^T Kuf
-// panel.
+// the staging of inducing points and data panels, and the routines that
+// build one Kuf panel and one A~ = W_u^T Kuf panel.
 //
 // Replaces the shared pieces of gpsat_tpu/ops/pallas_sgpr.py:
 // _build_kuf_at_tiles (:600) and the dot_general tiles of its kernels.
 //
-// Two tile products serve these kernels. gs_mma64 (64x64 outputs, 4x4
-// micro-tiles, float4 shared-memory reads) loads a 32-deep chunk, waits for
-// it and multiplies it: nothing overlaps the global loads. The four product
-// kernels of gp_sgpr_vg.cu run on it. stream1 and stream2 run on
-// gp_mma_pipe<128> of gp_common.cuh: 128x128 outputs with 8x8 micro-tiles
-// (4 float4 reads per 64 FMAs instead of 2 per 16, so each operand byte
-// feeds twice the FMAs), operands staged without bank conflicts, the next
-// 32-deep chunk in flight by cp.async (or in registers, for an operand read
-// across its rows) while this one is multiplied. Both are FP32 FMA on the
-// CUDA cores and bound by it: the products are ~M^2 N flops against ~M^2
-// bytes per expert.
+// One tile product serves every SGPR kernel: gp_mma_pipe of gp_common.cuh,
+// 128x128 outputs with 8x8 micro-tiles (4 float4 shared reads per 64 FMAs)
+// in stream1 and stream2, 64x64 outputs with 4x4 micro-tiles in the four P6
+// products of gp_sgpr_vg.cu (more resident blocks an SM). Operands are staged without bank conflicts, the next 32-deep
+// chunk in flight by cp.async (or in registers, for an operand read across
+// its rows) while this one is multiplied. FP32 FMA on the CUDA cores bounds
+// them: the products are ~M^2 N or ~M^3 flops against ~M^2 bytes per
+// expert.
 #pragma once
 
 #include "gp_common.cuh"
 
 #define GS_PW 128  // panel width (data columns per pass); Np is a multiple
-#define GS_T 64    // output tile edge of gs_mma64; divides GS_PW and Mp
-#define GS_KC 32   // depth of one staged chunk
-#define GS_TS 68   // padded row stride of a staged chunk (16-byte multiple)
-
-static_assert(GS_TS % 4 == 0 && GS_TS >= GS_T && GS_PW % GS_T == 0,
-              "staged rows are read as float4 and hold one tile row");
-#define GS_STAGE_FLOATS (2 * GS_KC * GS_TS)  // gs_mma64's shared memory
 
 struct GsShared {
   float* zs;    // [D][Mp] inducing coordinates / lengthscales
@@ -78,53 +67,6 @@ static __device__ void gs_stage_panel(const GsShared& g, const float* xt,
     g.yv[i] = yt[n0 + i];
   }
   __syncthreads();
-}
-
-// acc (this thread's 4x4 micro-tile of a GS_T x GS_T output) +=
-//   sum_{p < K} opA(r, p) * opB(p, c)
-// opA(r, p) = TA ? A[p*lda + r] : A[r*lda + p]
-// opB(p, c) = TB ? B[c*ldb + p] : B[p*ldb + c]
-// K is a multiple of GS_KC. Both operands stream through `stage` (2 x GS_KC
-// x GS_TS floats of shared memory, 16-byte aligned) in chunks of GS_KC.
-template <bool TA, bool TB>
-static __device__ void gs_mma64(float acc[4][4], const float* A, int lda,
-                                const float* B, int ldb, int K,
-                                float* stage) {
-  float* As = stage;                  // As[p][r]
-  float* Bs = stage + GS_KC * GS_TS;  // Bs[p][c]
-  const int tid = threadIdx.x;
-  const int r0 = (tid >> 4) * 4, c0 = (tid & 15) * 4;
-  for (int k0 = 0; k0 < K; k0 += GS_KC) {
-    for (int e = tid; e < GS_T * GS_KC; e += GP_THREADS) {
-      if (TA) {
-        const int p = e / GS_T, r = e % GS_T;
-        As[p * GS_TS + r] = A[(size_t)(k0 + p) * lda + r];
-      } else {
-        const int r = e / GS_KC, p = e % GS_KC;
-        As[p * GS_TS + r] = A[(size_t)r * lda + k0 + p];
-      }
-      if (TB) {
-        const int c = e / GS_KC, p = e % GS_KC;
-        Bs[p * GS_TS + c] = B[(size_t)c * ldb + k0 + p];
-      } else {
-        const int p = e / GS_T, c = e % GS_T;
-        Bs[p * GS_TS + c] = B[(size_t)(k0 + p) * ldb + c];
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int q = 0; q < GS_KC; ++q) {
-      const float4 a4 = *reinterpret_cast<const float4*>(As + q * GS_TS + r0);
-      const float4 b4 = *reinterpret_cast<const float4*>(Bs + q * GS_TS + c0);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
-  }
 }
 
 // pan [Mp][GS_PW] <- Kuf of the staged panel (data mask and inducing mask

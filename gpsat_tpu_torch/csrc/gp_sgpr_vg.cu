@@ -19,16 +19,22 @@
 // host call enqueues a fixed sequence of kernels on the caller's stream, each
 // with the grid that fills the card for its phase:
 //   P1  gv_kuu_kernel       Kuu, masked, jitter on the valid diagonal and a
-//                           unit diagonal on padded rows     grid (B, Mp)
+//                           unit diagonal on padded rows  grid (B, Mp/32)
 //   P2  gp_cholinv_launch   W_u = U_u^{-1}                   grid (B)
 //   P3  gp_sgpr_stream1_launch  Bsum = A~A~^T/s2, a~, |A~|^2 grids (G),
 //                           (tile pairs, B), (B)
 //   P4  gv_add_identity, gp_cholinv_launch  B = I + Bsum -> W_B, log det
-//   P5  gv_small_kernel     c, dd = B^{-1} a~, e = W_u dd, the scalars, the
-//                           value and d/ds2 (P8)             grid (B)
-//   P6  gv_t1/gv_p/gv_t2/gv_kbar_uu  the M^3-sized products and the Kbar_uu
-//                           reductions, one 64x64 tile per block
-//                                                    grid (B, Mp/64, Mp/64)
+//   P5  gv_c_kernel, gv_upper_matvec_kernel (twice), gv_scalars_kernel
+//                           c = a~^T W_B with |W_B|_F^2, dd = W_B c =
+//                           B^{-1} a~ with a~.dd and dd.dd, e = W_u dd, by
+//                           64-row or 64-column tiles   grids (B, Mp/64);
+//                           then the value and d/ds2 (P8) from vectors and
+//                           the tiles' partials                 grid (B)
+//   P6  gv_t1/gv_p/gv_t2/gv_kbar_uu  the M^3-sized products on
+//                           gp_mma_pipe<64>, one 64 x 64 tile a block, the
+//                           deepest tiles first     grid (B, Mp/64, Mp/64);
+//                           Kbar_uu's reductions over the upper tile pairs
+//                           only                        grid (B, pairs)
 //   P7  gp_sgpr_stream2_launch  the Kbar_uf reductions       grid (G)
 //       gv_finish_kernel    the lanes of out
 // P = I - B^{-1} is formed as B^{-1} Bsum = W_B (W_B^T Bsum) (eigenvalues in
@@ -62,114 +68,179 @@ extern "C" int gp_sgpr_stream2_launch(const float* xt, const float* yt,
                                       int Mp, int D, int G, int kernel_id,
                                       void* stream);
 
-// P1: one block per row of Kuu. The other two routes build Kuu in torch
-// (ops/cuda_sgpr._kuu), one rounding per operation. With jitter 1e-6 and a
-// few hundred inducing points Kuu sits at the edge of what f32 can factor, so
-// whether a pivot stays positive can turn on the last bit of an entry: the
-// intrinsics below keep the compiler from contracting a multiply and an add
-// into one fused operation, so that every route factors the same matrix.
+// P1: one warp per row of Kuu, GV_KR rows a block, grid (B, Mp/GV_KR); the
+// block first stages every column's z / ls and mask in shared memory. The
+// other two routes build Kuu in torch (ops/cuda_sgpr._kuu), one rounding per
+// operation. With jitter 1e-6 and a few hundred inducing points Kuu sits at
+// the edge of what f32 can factor, so whether a pivot stays positive can
+// turn on the last bit of an entry: the intrinsics below keep the compiler
+// from contracting a multiply and an add into one fused operation, so that
+// every route factors the same matrix (a staged quotient is the quotient
+// each entry computed before: IEEE division rounds the same anywhere).
+#define GV_KR 32  // rows of Kuu a block
 template <int KID>
 __global__ void __launch_bounds__(GP_THREADS)
 gv_kuu_kernel(const float* zt, const float* p, float* Kuu, int Mp, int D,
               float jitter) {
-  const int e = blockIdx.x, r = blockIdx.y;
+  __shared__ float zs[5][1024], zm[1024];  // Mp <= 1024 (the gate)
+  const int e = blockIdx.x, lane = threadIdx.x & 31;
   const float* ze = zt + (size_t)e * 8 * Mp;
   const float* pe = p + (size_t)e * 8;
   const float sf2 = pe[5], scale = gp_scale<KID>();
-  const float zmr = ze[7 * Mp + r];
-  float zr[5];
-  for (int d = 0; d < 5; ++d) zr[d] = d < D ? ze[d * Mp + r] / pe[d] : 0.f;
-  float* row = Kuu + ((size_t)e * Mp + r) * Mp;
   for (int c = threadIdx.x; c < Mp; c += GP_THREADS) {
-    float r2 = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float df = __fsub_rn(zr[d], ze[d * Mp + c] / pe[d]);
-      const float sq = __fmul_rn(df, df);
-      r2 = d == 0 ? sq : __fadd_rn(r2, sq);
+    for (int d = 0; d < D; ++d) zs[d][c] = ze[d * Mp + c] / pe[d];
+    zm[c] = ze[7 * Mp + c];
+  }
+  __syncthreads();
+  for (int r = blockIdx.y * GV_KR + (threadIdx.x >> 5);
+       r < (blockIdx.y + 1) * GV_KR; r += GP_THREADS / 32) {
+    const float zmr = zm[r];
+    float* row = Kuu + ((size_t)e * Mp + r) * Mp;
+    for (int c = lane; c < Mp; c += 32) {
+      float r2 = 0.f;
+      for (int d = 0; d < D; ++d) {
+        const float df = __fsub_rn(zs[d][r], zs[d][c]);
+        const float sq = __fmul_rn(df, df);
+        r2 = d == 0 ? sq : __fadd_rn(r2, sq);
+      }
+      const float k =
+          __fmul_rn(__fmul_rn(sf2, gp_phi<KID>(__fmul_rn(r2, scale))),
+                    __fmul_rn(zmr, zm[c]));
+      const float diag = __fadd_rn(__fmul_rn(zmr, jitter - 1.f), 1.f);
+      row[c] = r == c ? __fadd_rn(k, diag) : k;
     }
-    const float k = __fmul_rn(__fmul_rn(sf2, gp_phi<KID>(__fmul_rn(r2, scale))),
-                              __fmul_rn(zmr, ze[7 * Mp + c]));
-    const float diag = __fadd_rn(__fmul_rn(zmr, jitter - 1.f), 1.f);
-    row[c] = r == c ? __fadd_rn(k, diag) : k;
   }
 }
 
-// P4: Bm = I + Bsum, one block per row.
+// P4: Bm = I + Bsum, one warp per row (four columns a lane at a time),
+// grid (B, Mp/8).
 __global__ void __launch_bounds__(GP_THREADS)
 gv_add_identity(const float* Bsum, float* Bm, int Mp) {
-  const int r = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.y * (GP_THREADS / 32) + (threadIdx.x >> 5);
   const size_t o = ((size_t)blockIdx.x * Mp + r) * Mp;
-  for (int c = threadIdx.x; c < Mp; c += GP_THREADS)
-    Bm[o + c] = Bsum[o + c] + (r == c ? 1.f : 0.f);
+  for (int c = 4 * lane; c < Mp; c += 128) {
+    float4 v = *reinterpret_cast<const float4*>(Bsum + o + c);
+    v.x += r == c ? 1.f : 0.f;
+    v.y += r == c + 1 ? 1.f : 0.f;
+    v.z += r == c + 2 ? 1.f : 0.f;
+    v.w += r == c + 3 ? 1.f : 0.f;
+    *reinterpret_cast<float4*>(Bm + o + c) = v;
+  }
 }
 
-// P5 and P8: the M-sized rows and the scalars, one block per expert.
-//   c = a~^T W_B, dd = W_B c = B^{-1} a~, e = W_u dd
+// P5: the M-sized rows and, in (d), the scalars (P8). W_B and W_u are upper
+// triangular with exact zeros below the diagonal. Every launch but (d) has a
+// block per 64-row or 64-column tile of every expert; partS [B][Mp/64][4]
+// holds each tile's shares of |W_B|_F^2 (lane 0), a~.dd (1) and dd.dd (2).
+#define GV_VT 64  // row / column tile of the P5 matvecs
+
+// P5 (a): c = a~^T W_B, c_j = sum_{q <= j} a~_q W_B[q][j], by 64-column
+// tiles, and the tile's share of |W_B|_F^2 taken from the entries it reads
+// (the rows q <= j of its columns hold every nonzero of W_B). Block (e, t):
+// thread (g, l) = (tid / 64, tid % 64) takes rows g, g + 4, ... of column
+// jT + l, so each warp reads 128 contiguous bytes of a row; the four row
+// groups are added in order.
+__global__ void __launch_bounds__(GP_THREADS)
+gv_c_kernel(const float* WB, const float* at, float* c, float* partS,
+            int Mp) {
+  __shared__ float rc[GP_THREADS / GV_VT][GV_VT], red[32];
+  const int e = blockIdx.x, tid = threadIdx.x;
+  const int g = tid / GV_VT, l = tid % GV_VT, j = blockIdx.y * GV_VT + l;
+  const float* W = WB + (size_t)e * Mp * Mp;
+  const float* a = at + (size_t)e * Mp;
+  float s = 0.f, w2 = 0.f;
+  for (int q = g; q <= j; q += GP_THREADS / GV_VT) {
+    const float w = W[(size_t)q * Mp + j];
+    s += a[q] * w;
+    w2 += w * w;
+  }
+  rc[g][l] = s;
+  w2 = gp_block_sum(w2, red);  // its barriers publish rc
+  if (tid < GV_VT)
+    c[(size_t)e * Mp + j] = ((rc[0][l] + rc[1][l]) + rc[2][l]) + rc[3][l];
+  if (tid == 0) partS[((size_t)e * gridDim.y + blockIdx.y) * 4] = w2;
+}
+
+// P5 (b), (c): out = W v for an upper triangular W, out_i = sum_{q >= i}
+// W[i][q] v_q, by 64-row tiles: in block (e, t) warp w takes rows iT + w,
+// iT + w + 8, ..., its lanes the columns i + lane, i + lane + 32, ... in
+// order (rows read coalesced), added across the lanes by gp_warp_sum. With
+// `at` given (dd = W_B c), the tile's shares of a~.dd and dd.dd go to partS
+// lanes 1 and 2, its rows added in order.
+__global__ void __launch_bounds__(GP_THREADS)
+gv_upper_matvec_kernel(const float* W, const float* v, float* out,
+                       const float* at, float* partS, int Mp) {
+  __shared__ float v_s[1024], o_s[GV_VT];  // Mp <= 1024 (the gate)
+  const int e = blockIdx.x, iT = blockIdx.y * GV_VT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* We = W + (size_t)e * Mp * Mp;
+  for (int q = iT + threadIdx.x; q < Mp; q += GP_THREADS)
+    v_s[q] = v[(size_t)e * Mp + q];
+  __syncthreads();
+  for (int r = warp; r < GV_VT; r += GP_THREADS / 32) {
+    const int i = iT + r;
+    float a = 0.f;
+    for (int q = i + lane; q < Mp; q += 32)
+      a += We[(size_t)i * Mp + q] * v_s[q];
+    a = gp_warp_sum(a);
+    if (lane == 0) {
+      out[(size_t)e * Mp + i] = a;
+      o_s[r] = a;
+    }
+  }
+  if (at == nullptr) return;
+  __syncthreads();
+  if (warp == 0) {
+    float x = 0.f, y = 0.f;
+    for (int r = lane; r < GV_VT; r += 32) {
+      x += at[(size_t)e * Mp + iT + r] * o_s[r];
+      y += o_s[r] * o_s[r];
+    }
+    x = gp_warp_sum(x);
+    y = gp_warp_sum(y);
+    if (lane == 0) {
+      float* o = partS + ((size_t)e * gridDim.y + blockIdx.y) * 4;
+      o[1] = x;
+      o[2] = y;
+    }
+  }
+}
+
+// P5 (d) and P8: the scalars of each expert from vectors and partS (nv tiles
+// added in order), one block per expert:
 //   scal[e][0] = value, [1] = d/ds2, [2] = the trKff term of d/dlog sf2
-// W_B and W_u are upper triangular with exact zeros below the diagonal.
 // The constant M of d/ds2 is the padded one: tr B^{-1} and M cancel row by
 // row on the padded inducing rows.
 __global__ void __launch_bounds__(GP_THREADS)
-gv_small_kernel(const float* xt, const float* yt, const float* p,
-                const float* Wu, const float* WB, const float* at,
-                const float* trA2, const float* ldB, float* dd, float* ev,
-                float* scal, int Np, int Mp) {
-  extern __shared__ float sm[];
-  float* a_s = sm;           // [Mp] a~
-  float* c_s = sm + Mp;      // [Mp] c
-  float* d_s = sm + 2 * Mp;  // [Mp] dd
-  float* red = sm + 3 * Mp;  // [32]
-  const int e = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* Wue = Wu + (size_t)e * Mp * Mp;
-  const float* WBe = WB + (size_t)e * Mp * Mp;
-  for (int i = tid; i < Mp; i += GP_THREADS) a_s[i] = at[(size_t)e * Mp + i];
-  __syncthreads();
-  for (int j = tid; j < Mp; j += GP_THREADS) {
-    float a = 0.f;
-    for (int q = 0; q <= j; ++q) a += a_s[q] * WBe[(size_t)q * Mp + j];
-    c_s[j] = a;
-  }
-  __syncthreads();
-  for (int i = warp; i < Mp; i += GP_THREADS / 32) {
-    float a = 0.f;
-    for (int q = i + lane; q < Mp; q += 32) a += WBe[(size_t)i * Mp + q] * c_s[q];
-    a = gp_warp_sum(a);
-    if (lane == 0) d_s[i] = a;
-  }
-  __syncthreads();
-  for (int i = warp; i < Mp; i += GP_THREADS / 32) {
-    float a = 0.f;
-    for (int q = i + lane; q < Mp; q += 32) a += Wue[(size_t)i * Mp + q] * d_s[q];
-    a = gp_warp_sum(a);
-    if (lane == 0) ev[(size_t)e * Mp + i] = a;
-  }
-
-  float trb = 0.f, atdd = 0.f, dddd = 0.f, ydoty = 0.f, n = 0.f;
-  for (int i = tid; i < Mp * Mp; i += GP_THREADS) trb += WBe[i] * WBe[i];
-  for (int i = tid; i < Mp; i += GP_THREADS) {
-    atdd += a_s[i] * d_s[i];
-    dddd += d_s[i] * d_s[i];
-    dd[(size_t)e * Mp + i] = d_s[i];
-  }
+gv_scalars_kernel(const float* xt, const float* yt, const float* p,
+                  const float* trA2, const float* ldB, const float* partS,
+                  float* scal, int Np, int nv) {
+  __shared__ float red[32];
+  const int e = blockIdx.x, tid = threadIdx.x;
+  float ydoty = 0.f, n = 0.f;
   for (int i = tid; i < Np; i += GP_THREADS) {
     const float y = yt[(size_t)e * Np + i];
     ydoty += y * y;
     n += xt[((size_t)e * 8 + 7) * Np + i];
   }
-  trb = gp_block_sum(trb, red);
-  atdd = gp_block_sum(atdd, red);
-  dddd = gp_block_sum(dddd, red);
   ydoty = gp_block_sum(ydoty, red);
   n = gp_block_sum(n, red);
   if (tid == 0) {
+    float trb = 0.f, atdd = 0.f, dddd = 0.f;
+    for (int t = 0; t < nv; ++t) {
+      const float* s = partS + ((size_t)e * nv + t) * 4;
+      trb += s[0];
+      atdd += s[1];
+      dddd += s[2];
+    }
     const float sf2 = p[(size_t)e * 8 + 5], s2 = p[(size_t)e * 8 + 6];
     const float tA = trA2[e];
     float* o = scal + (size_t)e * 4;
     o[0] = 0.5f * n * 1.8378770664093453f + ldB[e] + 0.5f * n * logf(s2) +
            0.5f * ydoty / s2 - 0.5f * atdd / (s2 * s2) +
            0.5f * (sf2 * n - tA) / s2;
-    o[1] = 0.5f / s2 * (n - (float)Mp + trb) -
+    o[1] = 0.5f / s2 * (n - (float)(nv * GV_VT) + trb) -
            0.5f / (s2 * s2) * (ydoty - atdd / s2 - dddd / s2) -
            0.5f / (s2 * s2) * (sf2 * n - tA);
     o[2] = 0.5f * sf2 * n / s2;
@@ -177,80 +248,121 @@ gv_small_kernel(const float* xt, const float* yt, const float* p,
   }
 }
 
-// The P6 products: block (e, i, j) computes the 64x64 tile (i, j) of one
-// [Mp][Mp] product of expert e, skipping the zero half of a triangular
-// operand.
-#define GV_TILE_PROLOGUE                                      \
-  __shared__ __align__(16) float stage[GS_STAGE_FLOATS];      \
-  const int tid = threadIdx.x;                                \
-  const int r0 = (tid >> 4) * 4, c0 = (tid & 15) * 4;         \
-  const int iT = blockIdx.y * GS_T, jT = blockIdx.z * GS_T;   \
-  const size_t off = (size_t)blockIdx.x * Mp * Mp;            \
-  float acc[4][4] = {};
+// The P6 products, each a GV_T x GV_T output tile a block through
+// gp_mma_pipe<GV_T>, skipping the zero half of the triangular operand. A grid
+// (B, nt, nt) of a full product runs the expert fastest and ranks the tiles
+// by depth in z, the slowest index, so the deepest tiles are issued first
+// and the shallow ones fill the last wave. GV_T = 64 (4x4 micro-tiles, three
+// or four blocks an SM): measured on an H100 against 128-tiles (8x8
+// micro-tiles, one block an SM) with each edge forced, the 64-tiles win at
+// every Mp <= 512 and every B from 4 to 128 (PERF.md section 6), and every
+// SGPR configuration of the repo has Mp = 512; 128-tiles won by 2-12 % only
+// at Mp >= 768.
+#define GV_T 64
+// the stage of gp_mma_pipe<GV_T>, 32 KiB: static, under the 48 KiB a block
+// gets without opting in
+#define GV_STAGE \
+  __shared__ __align__(16) float stage[GP_PIPE_STAGE_FLOATS(GV_T)]
 
-// T1 = W_B^T Bsum: T1[i][j] = sum_{q <= i} W_B[q][i] Bsum[q][j]
-__global__ void __launch_bounds__(GP_THREADS)
-gv_t1_kernel(const float* WB, const float* Bsum, float* T1, int Mp) {
-  GV_TILE_PROLOGUE
-  gs_mma64<true, false>(acc, WB + off + iT, Mp, Bsum + off + jT, Mp,
-                        iT + GS_T, stage);
+// Tile (iT, jT) of a [Mp][Mp] matrix X <- acc, four adjacent columns a
+// float4.
+static __device__ __forceinline__ void gv_store(
+    float* X, int Mp, int iT, int jT,
+    const float (&acc)[GV_T / 16][GV_T / 16]) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      T1[off + (size_t)(iT + r0 + a) * Mp + jT + c0 + b] = acc[a][b];
+  for (int a = 0; a < GV_T / 16; ++a)
+    *reinterpret_cast<float4*>(X + (size_t)(iT + gp_pipe_at(a, ty)) * Mp +
+                               jT + gp_pipe_at(0, tx)) =
+        make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
 }
 
-// P = W_B T1 = B^{-1} Bsum: P[i][j] = sum_{q >= i} W_B[i][q] T1[q][j];
-// Bsum becomes C = Bsum - P in place (no other block reads this tile).
+// T1 = W_B^T Bsum: T1[i][j] = sum_{q <= i} W_B[q][i] Bsum[q][j]; tile row
+// iT = (nt - 1 - z) GV_T, depth iT + GV_T.
+__global__ void __launch_bounds__(GP_THREADS)
+gv_t1_kernel(const float* WB, const float* Bsum, float* T1, int Mp) {
+  GV_STAGE;
+  float acc[GV_T / 16][GV_T / 16] = {};
+  const int iT = (gridDim.z - 1 - blockIdx.z) * GV_T, jT = blockIdx.y * GV_T;
+  const size_t off = (size_t)blockIdx.x * Mp * Mp;
+  gp_mma_pipe<GV_T, true, false>(acc, WB + off + iT, Mp, Bsum + off + jT,
+                                 Mp, iT + GV_T, stage);
+  gv_store(T1 + off, Mp, iT, jT, acc);
+}
+
+// P = W_B T1 = B^{-1} Bsum: P[i][j] = sum_{q >= i} W_B[i][q] T1[q][j]; tile
+// row iT = z GV_T, depth Mp - iT. Bsum becomes C = Bsum - P in place (no other
+// block reads this tile).
 __global__ void __launch_bounds__(GP_THREADS)
 gv_p_kernel(const float* WB, const float* T1, float* Pm, float* BsumC,
             int Mp) {
-  GV_TILE_PROLOGUE
-  gs_mma64<false, false>(acc, WB + off + (size_t)iT * Mp + iT, Mp,
-                         T1 + off + (size_t)iT * Mp + jT, Mp, Mp - iT, stage);
+  GV_STAGE;
+  float acc[GV_T / 16][GV_T / 16] = {};
+  const int iT = blockIdx.z * GV_T, jT = blockIdx.y * GV_T;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const size_t off = (size_t)blockIdx.x * Mp * Mp;
+  gp_mma_pipe<GV_T, false, false>(acc, WB + off + (size_t)iT * Mp + iT, Mp,
+                                  T1 + off + (size_t)iT * Mp + jT, Mp,
+                                  Mp - iT, stage);
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const size_t o = off + (size_t)(iT + r0 + a) * Mp + jT + c0 + b;
-      Pm[o] = acc[a][b];
-      BsumC[o] -= acc[a][b];
-    }
+  for (int a = 0; a < GV_T / 16; ++a) {
+    const size_t o =
+        off + (size_t)(iT + gp_pipe_at(a, ty)) * Mp + jT + gp_pipe_at(0, tx);
+    const float4 pv = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+    float4 cv = *reinterpret_cast<const float4*>(BsumC + o);
+    cv.x -= pv.x;
+    cv.y -= pv.y;
+    cv.z -= pv.z;
+    cv.w -= pv.w;
+    *reinterpret_cast<float4*>(Pm + o) = pv;
+    *reinterpret_cast<float4*>(BsumC + o) = cv;
+  }
 }
 
-// T2 = C W_u^T: T2[i][j] = sum_{q >= j} C[i][q] W_u[j][q]
+// T2 = C W_u^T: T2[i][j] = sum_{q >= j} C[i][q] W_u[j][q]; tile column
+// jT = z GV_T, depth Mp - jT.
 __global__ void __launch_bounds__(GP_THREADS)
 gv_t2_kernel(const float* C, const float* Wu, float* T2, int Mp) {
-  GV_TILE_PROLOGUE
-  gs_mma64<false, true>(acc, C + off + (size_t)iT * Mp + jT, Mp,
-                        Wu + off + (size_t)jT * Mp + jT, Mp, Mp - jT, stage);
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      T2[off + (size_t)(iT + r0 + a) * Mp + jT + c0 + b] = acc[a][b];
+  GV_STAGE;
+  float acc[GV_T / 16][GV_T / 16] = {};
+  const int iT = blockIdx.y * GV_T, jT = blockIdx.z * GV_T;
+  const size_t off = (size_t)blockIdx.x * Mp * Mp;
+  gp_mma_pipe<GV_T, false, true>(acc, C + off + (size_t)iT * Mp + jT, Mp,
+                                 Wu + off + (size_t)jT * Mp + jT, Mp,
+                                 Mp - jT, stage);
+  gv_store(T2 + off, Mp, iT, jT, acc);
 }
 
 // Kbar_uu tile (i, j), j >= i, = 0.5 [W_u T2 + e e^T / s2^2], reduced on the
 // fly against sf2 phi and sf2 F q2_d of Kuu (elementwise, never the rank-1
-// expansion) into partU [B][nt][nt][8]: lanes 1..D the uu part of d/dlog
-// ls_d, lane 6 the uu part of d/dlog sf2. Lower tile pairs write nothing.
+// expansion) into partU [B][npairs][8]: lanes 1..D the uu part of d/dlog
+// ls_d, lane 6 the uu part of d/dlog sf2, weight 2 off the diagonal (Kbar_uu
+// and dKuu are symmetric). Grid (B, npairs): y is the pair's index among the
+// upper pairs in row order, so rows i = 0, 1, ... (depth Mp - iT) come
+// deepest first and no block is idle.
 template <int KID>
 __global__ void __launch_bounds__(GP_THREADS)
 gv_kbar_uu_kernel(const float* zt, const float* p, const float* Wu,
                   const float* T2, const float* ev, float* partU, int Mp,
                   int D) {
-  GV_TILE_PROLOGUE
-  __shared__ float zr[5][GS_T], zc[5][GS_T], mr[GS_T], mc[GS_T], er[GS_T],
-      ec[GS_T], red[32];
-  if (jT < iT) return;
-  const int e = blockIdx.x;
+  GV_STAGE;
+  __shared__ float zr[5][GV_T], zc[5][GV_T], mr[GV_T], mc[GV_T], er[GV_T],
+      ec[GV_T], red[32];
+  float acc[GV_T / 16][GV_T / 16] = {};
+  const int e = blockIdx.x, nt = Mp / GV_T, tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  int t = blockIdx.y, i = 0;
+  while (t >= nt - i) {
+    t -= nt - i;
+    ++i;
+  }
+  const int iT = i * GV_T, jT = (i + t) * GV_T;
+  const size_t off = (size_t)e * Mp * Mp;
   const float* ze = zt + (size_t)e * 8 * Mp;
   const float* pe = p + (size_t)e * 8;
   const float sf2 = pe[5], inv_s4 = 1.f / (pe[6] * pe[6]);
   const float scale = gp_scale<KID>();
-  if (tid < GS_T) {
+  if (tid < GV_T) {
     for (int d = 0; d < D; ++d) {
       zr[d][tid] = ze[d * Mp + iT + tid] / pe[d];
       zc[d][tid] = ze[d * Mp + jT + tid] / pe[d];
@@ -260,19 +372,20 @@ gv_kbar_uu_kernel(const float* zt, const float* p, const float* Wu,
     er[tid] = ev[(size_t)e * Mp + iT + tid];
     ec[tid] = ev[(size_t)e * Mp + jT + tid];
   }
-  // W_u T2: sum_{q >= i} W_u[i][q] T2[q][j] (gs_mma64 synchronises the block
-  // before the staged rows above are read)
-  gs_mma64<false, false>(acc, Wu + off + (size_t)iT * Mp + iT, Mp,
-                         T2 + off + (size_t)iT * Mp + jT, Mp, Mp - iT, stage);
+  // W_u T2: sum_{q >= i} W_u[i][q] T2[q][j] (gp_mma_pipe synchronises the
+  // block before the rows staged above are read)
+  gp_mma_pipe<GV_T, false, false>(acc, Wu + off + (size_t)iT * Mp + iT, Mp,
+                                  T2 + off + (size_t)iT * Mp + jT, Mp,
+                                  Mp - iT, stage);
   const float wsym = (iT == jT) ? 1.f : 2.f;
   float gls[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   float gsf2 = 0.f;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = r0 + a;
+  for (int a = 0; a < GV_T / 16; ++a) {
+    const int r = gp_pipe_at(a, ty);
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int c = c0 + b;
+    for (int b = 0; b < GV_T / 16; ++b) {
+      const int c = gp_pipe_at(b, tx);
       const float kbar = 0.5f * (acc[a][b] + er[r] * ec[c] * inv_s4);
       float q2[5];
       float r2 = 0.f;
@@ -295,8 +408,7 @@ gv_kbar_uu_kernel(const float* zt, const float* p, const float* Wu,
   gsf2 = gp_block_sum(gsf2, red);
   for (int d = 0; d < 5; ++d) gls[d] = gp_block_sum(gls[d], red);
   if (tid == 0) {
-    float* o = partU + (((size_t)e * gridDim.y + blockIdx.y) * gridDim.z +
-                        blockIdx.z) * 8;
+    float* o = partU + ((size_t)e * gridDim.y + blockIdx.y) * 8;
     o[0] = 0.f;
     for (int d = 0; d < 5; ++d) o[1 + d] = d < D ? wsym * gls[d] : 0.f;
     o[6] = wsym * gsf2;
@@ -304,12 +416,12 @@ gv_kbar_uu_kernel(const float* zt, const float* p, const float* Wu,
   }
 }
 
-// out [B][8] <- value and d/ds2 from scal, the uu partials of the upper tile
-// pairs added in order, the uf lanes of the second streamed pass and the
-// trKff term.
+// out [B][8] <- value and d/ds2 from scal, the uu partials of the npairs
+// upper tile pairs added in order, the uf lanes of the second streamed pass
+// and the trKff term.
 __global__ void gv_finish_kernel(const float* scal, const float* partU,
                                  const float* gout, float* out, int B,
-                                 int nt) {
+                                 int npairs) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B * 8) return;
   const int e = i / 8, l = i % 8;
@@ -318,9 +430,7 @@ __global__ void gv_finish_kernel(const float* scal, const float* partU,
     return;
   }
   float t = 0.f;
-  for (int a = 0; a < nt; ++a)
-    for (int b = a; b < nt; ++b)
-      t += partU[(((size_t)e * nt + a) * nt + b) * 8 + l];
+  for (int a = 0; a < npairs; ++a) t += partU[((size_t)e * npairs + a) * 8 + l];
   t += gout[i];
   if (l == 6) t += scal[(size_t)e * 4 + 2];
   out[i] = t;
@@ -333,17 +443,18 @@ struct GvWorkspace {
   size_t Uw;    // [B][Mp][Mp] cholinv's U of both factorisations, then P
   size_t Bs;    // [B][Mp][Mp] Bsum, then C = Bsum - P
   size_t WB;    // [B][Mp][Mp]
-  size_t at, dd, ev;        // [B][Mp]
+  size_t at, c, dd, ev;     // [B][Mp]
   size_t trA2, ldu, ldB;    // [B]
   size_t scal;              // [B][4]
   size_t gout;              // [B][8]
-  size_t partU;             // [B][Mp/64][Mp/64][8]
+  size_t partS;             // [B][Mp/64][4]
+  size_t partU;             // [B][npairs][8]
   size_t stream;            // the streamed passes' partials and panels
   size_t floats;            // the whole
 };
 
 static GvWorkspace gv_layout(int B, int Np, int Mp, int G) {
-  const size_t b = B, m = Mp, m2 = m * m, nt = m / GS_T;
+  const size_t b = B, m = Mp, m2 = m * m, nv = m / GV_VT, nt = m / GV_T;
   const size_t np = Np / GS_PW, g = G;
   GvWorkspace w;
   size_t q = 0;
@@ -353,6 +464,7 @@ static GvWorkspace gv_layout(int B, int Np, int Mp, int G) {
   w.Bs = q; q += b * m2;
   w.WB = q; q += b * m2;
   w.at = q; q += b * m;
+  w.c = q; q += b * m;
   w.dd = q; q += b * m;
   w.ev = q; q += b * m;
   w.trA2 = q; q += b;
@@ -360,7 +472,8 @@ static GvWorkspace gv_layout(int B, int Np, int Mp, int G) {
   w.ldB = q; q += b;
   w.scal = q; q += b * 4;
   w.gout = q; q += b * 8;
-  w.partU = q; q += b * nt * nt * 8;
+  w.partS = q; q += b * nv * 4;
+  w.partU = q; q += b * nt * (nt + 1) / 2 * 8;
   q = (q + 63) / 64 * 64;  // gp_mma_pipe reads the panels by 16-byte copies
   w.stream = q;
   // pass 1: Kuf panels [G][Mp][GS_PW], the slab [B][Np][Mp], partA
@@ -384,15 +497,16 @@ extern "C" int gp_sgpr_vg_launch(const float* xt, const float* yt,
   cudaStream_t st = (cudaStream_t)stream;
   const GvWorkspace w = gv_layout(B, Np, Mp, G);
   const size_t b = B, m = Mp, g = G;
-  const int nt = Mp / GS_T;
-  const dim3 rows(B, Mp), tiles(B, nt, nt);
+  const int nt = Mp / GV_T, npairs = nt * (nt + 1) / 2;
+  const dim3 vtiles(B, Mp / GV_VT), tiles(B, nt, nt);
   float *A0 = ws + w.A0, *Wu = ws + w.Wu, *Uw = ws + w.Uw, *Bs = ws + w.Bs,
-        *WB = ws + w.WB, *at = ws + w.at, *dd = ws + w.dd, *ev = ws + w.ev,
-        *trA2 = ws + w.trA2, *ldu = ws + w.ldu, *ldB = ws + w.ldB,
-        *scal = ws + w.scal, *gout = ws + w.gout, *partU = ws + w.partU;
+        *WB = ws + w.WB, *at = ws + w.at, *cv = ws + w.c, *dd = ws + w.dd,
+        *ev = ws + w.ev, *trA2 = ws + w.trA2, *ldu = ws + w.ldu,
+        *ldB = ws + w.ldB, *scal = ws + w.scal, *gout = ws + w.gout,
+        *partS = ws + w.partS, *partU = ws + w.partU;
   int code;
   {
-    const dim3 grid = rows;
+    const dim3 grid(B, Mp / GV_KR);
     const size_t smem = 0;
     GP_DISPATCH(gv_kuu_kernel, zt, p, A0, Mp, D, jitter)
     if (code != 0) return code;
@@ -409,24 +523,33 @@ extern "C" int gp_sgpr_vg_launch(const float* xt, const float* yt,
                                   kernel_id, stream);
     if (code != 0) return code;
   }
-  gv_add_identity<<<rows, GP_THREADS, 0, st>>>(Bs, A0, Mp);
+  gv_add_identity<<<dim3(B, Mp / (GP_THREADS / 32)), GP_THREADS, 0, st>>>(
+      Bs, A0, Mp);
   code = (int)cudaGetLastError();
   if (code != 0) return code;
   code = gp_cholinv_launch(A0, WB, ldB, Uw, B, Mp, stream);
   if (code != 0) return code;
-  gv_small_kernel<<<B, GP_THREADS, sizeof(float) * (3 * Mp + 32), st>>>(
-      xt, yt, p, Wu, WB, at, trA2, ldB, dd, ev, scal, Np, Mp);
+  gv_c_kernel<<<vtiles, GP_THREADS, 0, st>>>(WB, at, cv, partS, Mp);
+  gv_upper_matvec_kernel<<<vtiles, GP_THREADS, 0, st>>>(WB, cv, dd, at,
+                                                        partS, Mp);
+  gv_upper_matvec_kernel<<<vtiles, GP_THREADS, 0, st>>>(Wu, dd, ev, nullptr,
+                                                        partS, Mp);
+  gv_scalars_kernel<<<B, GP_THREADS, 0, st>>>(xt, yt, p, trA2, ldB, partS,
+                                              scal, Np, Mp / GV_VT);
   code = (int)cudaGetLastError();
   if (code != 0) return code;
+  // P6: T1 into A0, P into Uw and C into Bs, T2 into A0, then Kbar_uu's
+  // partials
   gv_t1_kernel<<<tiles, GP_THREADS, 0, st>>>(WB, Bs, A0, Mp);
   gv_p_kernel<<<tiles, GP_THREADS, 0, st>>>(WB, A0, Uw, Bs, Mp);
   gv_t2_kernel<<<tiles, GP_THREADS, 0, st>>>(Bs, Wu, A0, Mp);
   code = (int)cudaGetLastError();
   if (code != 0) return code;
   {
-    const dim3 grid = tiles;
+    const dim3 grid(B, npairs);
     const size_t smem = 0;
-    GP_DISPATCH(gv_kbar_uu_kernel, zt, p, Wu, A0, ev, partU, Mp, D)
+    GP_DISPATCH(gv_kbar_uu_kernel, zt, p, (const float*)Wu, (const float*)A0,
+                (const float*)ev, partU, Mp, D)
     if (code != 0) return code;
   }
   {
@@ -437,6 +560,6 @@ extern "C" int gp_sgpr_vg_launch(const float* xt, const float* yt,
     if (code != 0) return code;
   }
   gv_finish_kernel<<<(B * 8 + 255) / 256, 256, 0, st>>>(scal, partU, gout,
-                                                       out, B, nt);
+                                                       out, B, npairs);
   return (int)cudaGetLastError();
 }

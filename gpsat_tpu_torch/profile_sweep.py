@@ -13,8 +13,9 @@ JSON object
 per sweep: wall times, pool iterations and slots, launches of each fused
 kernel, peak device memory, the device time of each CUDA kernel by name and
 summed per port kernel (`port_kernels_ms`: cholinv, stream1, stream2 and
-nlml_vg enqueue several), and the device's busy share of the profiled wall
-time. Needs a CUDA device; numbers are this run's.
+nlml_vg enqueue several) and, for route mega, per phase of its own kernels
+(`gv_ms`: the four P6 products, P5, the rest), and the device's busy share
+of the profiled wall time. Needs a CUDA device; numbers are this run's.
 """
 
 import argparse
@@ -26,6 +27,8 @@ import time
 import numpy as np
 import torch
 
+from gpsat_tpu_torch.device_profile import (base_name, by_gv_group,
+                                           device_times)
 from gpsat_tpu_torch.models.batched import BatchedGPR, BatchedSGPR
 from gpsat_tpu_torch.ops import cuda_gpr, cuda_sgpr
 from gpsat_tpu_torch.parallel.scheduler import auto_batch_size
@@ -71,16 +74,6 @@ def sgpr_slots(E, N, M):
     return B - B % 16 if B >= 16 else B
 
 
-def _device_times(prof):
-    """{kernel name: (device microseconds, calls)} of the CUDA kernels."""
-    out = {}
-    for evt in prof.key_averages():
-        us = evt.device_time_total
-        if us and evt.device_type == torch.autograd.DeviceType.CUDA:
-            out[evt.key] = (float(us), int(evt.count))
-    return out
-
-
 # The CUDA kernels of each port kernel (a launch entry may enqueue several),
 # by the prefix of their names. The exact-GPR kernels factor on cholinv's
 # kernels (gp_cholinv_*), so in the gpr sweep the cholinv family is vg's
@@ -97,11 +90,7 @@ def _by_family(kernels):
     names carry its prefix."""
     out = {}
     for key, (us, calls) in kernels.items():
-        # drop "void " and the arguments; a template argument list may hold
-        # spaces ("gp_cholinv_diag_kernel<CiKernel<1> >")
-        name = key.split("(")[0].strip()
-        if name.startswith("void "):
-            name = name[len("void "):]
+        name = base_name(key)
         for fam, prefix in _FAMILIES.items():
             if name.startswith(prefix):
                 ms, n = out.get(fam, (0.0, 0))
@@ -130,7 +119,7 @@ def profile(engine, E, N, P, D, slots):
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         _, profiled = sweep()
-    kernels = _device_times(prof)
+    kernels = device_times(prof)
     busy_us = sum(us for us, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -155,6 +144,7 @@ def profile(engine, E, N, P, D, slots):
         "top_kernels_ms": {k[:80]: {"ms": us * 1e-3, "calls": c}
                            for k, (us, c) in top},
         "port_kernels_ms": _by_family(kernels),
+        "gv_ms": by_gv_group(kernels),
     }
 
 

@@ -450,19 +450,24 @@ def test_stream1_in_several_slabs(dev, slab, B, monkeypatch):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kernel,N,M,D", [
-    ("Matern32", 300, 100, 3), ("Matern12", 230, 100, 3),
-    ("Matern52", 230, 100, 3), ("RBF", 230, 100, 3),
-    ("Exponential", 230, 100, 3), ("Matern32", 70, 30, 1),
-    ("Matern32", 1100, 260, 2), ("Matern32", 150, 128, 5),
-    ("Matern32", 230, 150, 2), ("Matern32", 2000, 1000, 2)])
-def test_mega_kernel_matches_plain(dev, kernel, N, M, D):
+@pytest.mark.parametrize("kernel,N,M,D,B", [
+    ("Matern32", 300, 100, 3, 4), ("Matern12", 230, 100, 3, 4),
+    ("Matern52", 230, 100, 3, 4), ("RBF", 230, 100, 3, 4),
+    ("Exponential", 230, 100, 3, 4), ("Matern32", 70, 30, 1, 4),
+    ("Matern32", 1100, 260, 2, 4), ("Matern32", 150, 128, 5, 4),
+    ("Matern32", 230, 150, 2, 4), ("Matern32", 2000, 1000, 2, 4),
+    ("Matern32", 300, 100, 3, 140), ("Matern32", 400, 260, 2, 140),
+    ("Matern32", 2000, 500, 3, 48), ("Matern52", 1100, 300, 3, 48),
+    ("Matern32", 2000, 1000, 2, 8), ("Matern32", 1100, 1000, 2, 140)])
+def test_mega_kernel_matches_plain(dev, kernel, N, M, D, B):
     """The one-launch value + gradient against its plain version on the same
     packed inputs: value rtol 2e-4 atol 1e-3, gradient lanes rtol 5e-3 and
     atol 5e-3 of the largest lane; a second launch repeats the first bit
-    for bit; one count per call."""
+    for bit; one count per call. Mp from 128 to 1024 with B = 4, Mp 128 and
+    384 with B = 140 (above an H100's 132 SMs), the bench shape (B=48,
+    N=2000, M=500) and Mp 384 at B=48, Mp 1024 at B = 8 and 140."""
     from gpsat_tpu_torch.ops import cuda_sgpr
-    params, X, y, m, Z, zm = make_sgpr_case(dev, N=N, M=M, D=D, seed=N)
+    params, X, y, m, Z, zm = make_sgpr_case(dev, B=B, N=N, M=M, D=D, seed=N)
     Xp, Zp, mf, zmf, ls, _, sf2, s2, ybar = cuda_sgpr._prepare(
         params, X, y, m, Z, zm)
     xt, yt, zt, p = cuda_sgpr._pack_stream(Xp, mf, ybar, Zp, zmf, ls, sf2, s2)
@@ -471,7 +476,7 @@ def test_mega_kernel_matches_plain(dev, kernel, N, M, D):
               cuda_sgpr.sgpr_stream1.launches)
     got = cuda_sgpr.sgpr_vg_mega(xt, yt, zt, p, kernel, D, jitter)
     want = cuda_sgpr._mega_plain(xt, yt, zt, p, kernel, D, jitter).cpu()
-    assert got.shape == (4, 8)
+    assert got.shape == (B, 8)
     np.testing.assert_allclose(got[:, 0].cpu().numpy(), want[:, 0].numpy(),
                                rtol=2e-4, atol=1e-3)
     np.testing.assert_allclose(

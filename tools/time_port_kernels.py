@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the CUDA kernels of one checkout of gpsat_tpu_torch on the card.
 
-    python tools/time_port_kernels.py [ROOT]
+    python tools/time_port_kernels.py [ROOT] [--gv-shapes BxM,...]
 
 ROOT (default: this checkout) is a directory holding a `gpsat_tpu_torch`
 package; its kernels are built there and timed at the widths the bench
@@ -12,23 +12,30 @@ vg's 345 kernel matrices, N=400 padded to 448; cholinv_factor: the
 exact-GPR factor alone, with no W = U^{-1} and no border, on 512 kernel
 matrices rebuilt from the coordinates (gp_cholinv_kernel_launch, where the
 checkout has it); Matern32, D=3, fixed random hyperparameters), by CUDA
-events over 20 warm launches. Prints one JSON line
-with the card's name and power limit. To compare two commits, unpack each
-with `git archive` and run this script on both in one job, in the order
-parent, change, change, parent: two jobs may land on two cards.
+events over 20 warm launches. sgpr_vg_mega runs at 48 and 128 experts;
+beside each, `gv` holds the device time of route mega's own kernels
+(csrc/gp_sgpr_vg.cu's gv_*) in one call, by torch.profiler: the four P6
+products, the P5 matvecs and scalars, and the rest (Kuu, I + Bsum, the
+finish), and `gv_matmul` the same four products as torch.matmul with TF32
+off on the same tensors (full products: the library yardstick of the
+products). Prints one JSON line with the card's name and power limit. To
+compare two commits, unpack each with `git archive` and run this script on
+both in one job, in the order parent, change, change, parent: two jobs may
+land on two cards.
+
+--gv-shapes gives the (experts, inducing points) shapes of the mega timing
+(N=2000; default 48x500,128x500); --gv-only times mega alone.
 """
 
+import argparse
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 
-ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
-                       os.path.join(os.path.dirname(__file__), ".."))
-sys.path.insert(0, ROOT)
-
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
+import numpy as np
+import torch
 
 REPS = 20
 
@@ -44,6 +51,28 @@ def cuda_ms(fn):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / REPS
+
+
+def own_device_profile():
+    """This checkout's gpsat_tpu_torch/device_profile.py, loaded by its path
+    (it imports torch alone), so that a ROOT that predates it is timed by
+    the same kernel groups."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "gpsat_tpu_torch", "device_profile.py")
+    spec = importlib.util.spec_from_file_location("_device_profile", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def gv_matmuls(W_B, Bsum, W_u):
+    """The four P6 products of route mega as torch.matmul, full products."""
+    def run():
+        T1 = W_B.mT @ Bsum
+        P = W_B @ T1
+        T2 = (Bsum - P) @ W_u.mT
+        return W_u @ T2
+    return run
 
 
 def factor_alone(lib, xt, p, kernel_id, D):
@@ -68,9 +97,19 @@ def factor_alone(lib, xt, p, kernel_id, D):
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("root", nargs="?",
+                    default=os.path.join(os.path.dirname(__file__), ".."))
+    ap.add_argument("--gv-shapes", default="48x500,128x500")
+    ap.add_argument("--gv-only", action="store_true")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    gv_shapes = [tuple(int(v) for v in s.split("x"))
+                 for s in args.gv_shapes.split(",")]
     if not torch.cuda.is_available():
         print("time_port_kernels: no CUDA device", file=sys.stderr)
         return 1
+    sys.path.insert(0, root)
     from gpsat_tpu_torch.ops import _build, cuda_cholinv, cuda_gpr, cuda_sgpr
     from gpsat_tpu_torch.profile_sweep import bench_sgpr_engine, workload
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -89,9 +128,10 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()
-    out = {"tree": ROOT, "card": smi[0] if smi else
+    out = {"tree": root, "card": smi[0] if smi else
            torch.cuda.get_device_name(0)}
-    for name, E in (("vg", 345), ("predict", 512), ("value", 512)):
+    for name, E in () if args.gv_only else (("vg", 345), ("predict", 512),
+                                             ("value", 512)):
         X, y, mask, Xs = workload(E, 400, 400, D, seed=3)
         xt, yt, p, _, _ = cuda_gpr._pack(hyper(E), t(X), t(y),
                                          t(mask.astype(np.float32)), 1e-6)
@@ -116,7 +156,7 @@ def main():
             out[name] = cuda_ms(
                 lambda: cuda_gpr._predict_launch(xt, yt, p, xs, kernel, D))
 
-    for B in (48, 128):
+    for B in () if args.gv_only else (48, 128):
         X, y, mask, _ = workload(B, 2000, 1, D, seed=3)
         Z, zmask = bench_sgpr_engine(D, 500)._build_inducing(X, mask)
         Xp, Zp, m, zm, ls, _, sf2, s2, ybar = cuda_sgpr._prepare(
@@ -141,8 +181,32 @@ def main():
         out["sgpr_stream2"] = cuda_ms(
             lambda: cuda_sgpr.sgpr_stream2(xt, yt, zt, p, W_u, Pm, dd, kernel,
                                            D))
-        out["sgpr_vg_mega"] = cuda_ms(
-            lambda: cuda_sgpr.sgpr_vg_mega(xt, yt, zt, p, kernel, D, 1e-6))
+
+    prof = own_device_profile()
+    # gv_small_kernel: P5 of checkouts before the tiled P5, one block an
+    # expert
+    gv_groups = dict(prof.GV_GROUPS, p5=prof.GV_GROUPS["p5"] +
+                     ("gv_small_kernel",))
+    for B, M in gv_shapes:
+        X, y, mask, _ = workload(B, 2000, 1, D, seed=3)
+        Z, zmask = bench_sgpr_engine(D, M)._build_inducing(X, mask)
+        Xp, Zp, m, zm, ls, _, sf2, s2, ybar = cuda_sgpr._prepare(
+            hyper(B), t(X), t(y), t(mask), t(Z), t(zmask))
+        Kuu = cuda_sgpr._kuu(Zp / ls[:, None, :], zm, sf2, kernel, 1e-6)[0]
+        xt, yt, zt, p = cuda_sgpr._pack_stream(Xp, m, ybar, Zp, zm, ls, sf2,
+                                               s2)
+        W_u, _ = cuda_cholinv.cholinv_batched(Kuu)
+        Bsum = cuda_sgpr.sgpr_stream1(xt, yt, zt, p, W_u, kernel, D)[0]
+        Bm = Bsum + torch.eye(Bsum.shape[1], device="cuda")
+        W_B, _ = cuda_cholinv.cholinv_batched(Bm)
+
+        def mega():
+            return cuda_sgpr.sgpr_vg_mega(xt, yt, zt, p, kernel, D, 1e-6)
+        key = ("sgpr_vg_mega" if (B, M) == (48, 500) else
+               f"sgpr_vg_mega_{B}x{Zp.shape[1]}")
+        out[key] = cuda_ms(mega)
+        out[key + "_gv"] = prof.gv_share_ms(mega, REPS, gv_groups)
+        out[key + "_gv_matmul"] = cuda_ms(gv_matmuls(W_B, Bsum, W_u))
     print(json.dumps(out))
     return 0
 
