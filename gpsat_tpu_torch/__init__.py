@@ -16,7 +16,19 @@ Layout
                                  exact-GPR and SGPR sweep engines, and the
                                  per-expert models ``GPRModel`` /
                                  ``SGPRModel`` (``models.get_model``).
-- ``gpsat_tpu_torch.parallel`` : expert bucketing and batch sizing.
+- ``gpsat_tpu_torch.parallel`` : expert bucketing and batch sizing; the
+                                 share-nothing multi-process stripe
+                                 (``parallel/multihost.py``).
+- ``gpsat_tpu_torch.local_experts`` : the pipeline entry point
+                                 ``LocalExpertOI`` (host gather, buckets,
+                                 engine, results store) and its device half
+                                 ``execute_buckets``, which needs neither
+                                 pandas nor h5py.
+- host modules (copies of the JAX package's): ``store`` (HDF5 results
+                                 store, the same schema), ``dataloader``,
+                                 ``dataprepper``, ``prediction_locations``,
+                                 ``config_dataclasses``, ``utils``,
+                                 ``decorators``.
 - ``gpsat_tpu_torch.weights``  : carry parameters and optimiser states over
                                  from the JAX package as numpy arrays.
 

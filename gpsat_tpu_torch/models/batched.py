@@ -198,6 +198,11 @@ class BatchedGPR:
                                      low, high, tol=1e-2)
             self.init_values[name] = cur if name == "lengthscales" else float(cur[0])
 
+    @property
+    def param_names(self):
+        """Parameters stored per expert and re-loadable from result tables."""
+        return list(self.HYPER_NAMES)
+
     def param_shape(self, name):
         return (self.d,) if name == "lengthscales" else ()
 
@@ -220,11 +225,13 @@ class BatchedGPR:
         return pack(free, self._spec(), batch_shape=(B,)).to(self.dtype)
 
     def _batched_bijectors(self, B):
-        """Free-parameter bijectors with [B]-leading tensors in the engine
-        dtype (unbatched float64 bounds would otherwise promote the whole
-        optimisation to f64)."""
+        """Free-parameter bijectors with [B, *param_shape] tensors in the
+        engine dtype (unbatched float64 bounds would otherwise promote the
+        whole optimisation to f64; a scalar bound or shift of the
+        lengthscales, as the default Softplus has, is broadcast over them)."""
         return {n: self.bijectors[n].map_tensors(
-            lambda a: self._tensor(a).expand((B,) + tuple(a.shape)))
+            lambda a, n=n: self._tensor(a).expand(
+                (B,) + tuple(self.param_shape(n))))
             for n in self.free_names}
 
     # -- per-bucket execution ------------------------------------------------
@@ -700,6 +707,15 @@ class BatchedSGPR(BatchedGPR):
         self.route = route
         self._Z = None
         self._zmask = None
+
+    @property
+    def param_names(self):
+        """Hyperparameters and per-expert inducing locations. A reload of the
+        inducing points (load_params) falls back to the seeded re-selection
+        for missing/NaN rows; stored padded rows are zeros, which is only
+        exact when the reload uses the same local data (the smoothed
+        re-prediction case)."""
+        return list(self.HYPER_NAMES) + ["inducing_points"]
 
     def param_shape(self, name):
         if name == "inducing_points":
