@@ -38,10 +38,19 @@ Phases (any failure exits non-zero; nothing is caught):
      plain versions on the largest level's arrays, RMSE against the truth
      field, one level bit for bit against a direct fit_predict_many, 16
      experts against the same run on the CPU in f64; then 96 experts
-     through SGPRModel (M=500, route "mega"), each against f64.
+     through SGPRModel (M=500, route "mega"), each against f64;
+  7. the smoothed re-predict (run_examples.sh step 6) of phase 6's fit:
+     the five hyperparameter fields of all 10 201 experts smoothed on the
+     card in f64 with configs/example_postprocessing.json's settings
+     (postprocessing.smooth_field), each held against the native C++ host
+     smoother; then execute_buckets with the smoothed parameters and
+     optimise=False: the predict kernel on every level and no vg kernel,
+     every expert at 0 iterations and against f64 at the smoothed
+     parameters, RMSE against the truth field.
 The line before the last is a JSON object with one entry per kernel (its
-launches in phases 3-4, and in phase 6's GPR and SGPR runs); the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX or gpsat_tpu.
+launches in phases 3-4, in phase 6's GPR and SGPR runs and in phase 7); the
+last line is {"ok": true, "device": {...}}. Imports nothing of JAX or
+gpsat_tpu.
 """
 
 import json
@@ -1119,12 +1128,15 @@ def hold_preds(name, got, want, valid, tol=PRED_TOL):
     return worst
 
 
-def check_gpr_against_f64(inp, out, kernel):
+def check_gpr_against_f64(inp, out, kernel, params=None,
+                          hold_objective=True, name="pipeline GPR vs f64"):
     """Predictions (f*, f*_var, y_var, each at PRED_TOL) and objective of
-    every expert against ops/gpr in f64 on the card at the fitted
-    parameters, bucket by bucket in chunks of 64 (objective rtol 1e-3 atol
-    2e-2, phase_bulk_nlml's). Returns the largest errors."""
+    every expert against ops/gpr in f64 on the card at `params` (default:
+    the fitted out["params"]), bucket by bucket in chunks of 64 (objective
+    rtol 1e-3 atol 2e-2, phase_bulk_nlml's, unless not `hold_objective`).
+    Returns the largest errors."""
     from gpsat_tpu_torch.ops import gpr as gpr_math
+    params = out["params"] if params is None else params
     valid = pred_valid(out)
     width = valid.shape[1]
     ref = {k: np.full_like(out["preds"][k], np.nan) for k in PRED_TOL}
@@ -1140,17 +1152,19 @@ def check_gpr_against_f64(inp, out, kernel):
                 return torch.tensor(a[rows], dtype=dtype, device="cuda")
             prm = {k: torch.tensor(v[part], dtype=torch.float64,
                                    device="cuda")
-                   for k, v in out["params"].items()}
+                   for k, v in params.items()}
             pr = gpr_math.predict(prm, t(X), t(y), t(mask, torch.bool),
                                   t(Xs), kernel=kernel)
             for k in ref:
                 ref[k][part] = pr[k].cpu().numpy()[:, :width]
             nl = gpr_math.nlml(prm, t(X), t(y), t(mask, torch.bool),
                                kernel=kernel).cpu().numpy()
-            np.testing.assert_allclose(out["objective"][part], nl, rtol=1e-3,
-                                       atol=2e-2, err_msg="pipeline NLML")
+            if hold_objective:
+                np.testing.assert_allclose(out["objective"][part], nl,
+                                           rtol=1e-3, atol=2e-2,
+                                           err_msg="pipeline NLML")
             oerr = max(oerr, float(np.abs(out["objective"][part] - nl).max()))
-    perr = hold_preds("pipeline GPR vs f64", out["preds"], ref, valid)
+    perr = hold_preds(name, out["preds"], ref, valid)
     return perr, oerr
 
 
@@ -1204,7 +1218,8 @@ def phase_pipeline(cuda_gpr):
     full-Arctic 50 km north star, f32 on the card, GPRModel as
     configs/example_local_expert_oi.json configures it; then a small
     SGPRModel run through the same function. Returns the launches of each
-    run, {kernel: launches}."""
+    run ({kernel: launches}), the GPR run's inputs and result, and its RMSE
+    against the truth field."""
     from gpsat_tpu_torch.local_experts import make_engine
     from gpsat_tpu_torch.models.exact_gpr import GPRModel
 
@@ -1313,7 +1328,7 @@ def phase_pipeline(cuda_gpr):
                tol=SUBSET_TOL)
     np.testing.assert_allclose(out["objective"][picks], ref["objective"],
                                rtol=1e-3, err_msg="pipeline CPU objective")
-    return launches, phase_pipeline_sgpr(cuda_gpr, inp)
+    return launches, phase_pipeline_sgpr(cuda_gpr, inp), inp, out, rmse
 
 
 def phase_pipeline_sgpr(cuda_gpr, inp):
@@ -1390,6 +1405,128 @@ def phase_pipeline_sgpr(cuda_gpr, inp):
     return launches
 
 
+# configs/example_postprocessing.json: the fields it smooths, their
+# lengthscales (m) and upper limits
+SMOOTHING = {"l_x": 400 * KM, "l_y": 400 * KM,
+             "max": {"kernel_variance": 0.5, "likelihood_variance": 0.3}}
+# the card's f64 smoother against the native host one (another summation
+# order of the same f64 sums)
+SMOOTH_RTOL = 1e-10
+
+
+def smoothed_fields(inp, params):
+    """Phase 6's fitted parameters smoothed over the expert locations as
+    smooth_hyperparameters does it: one field per lengthscale component and
+    one for each variance, smooth_field on the card in f64, each held
+    against native.gaussian_2d_weight (C++ on the host, f64) at
+    SMOOTH_RTOL with the same clamps. Returns the smoothed parameters
+    {name: [E, ...]} and each field's card seconds."""
+    from gpsat_tpu_torch import native
+    from gpsat_tpu_torch.postprocessing import smooth_field
+    require(native._load() is not None, "native host library not loaded")
+    x, y = inp["experts"][:, 0], inp["experts"][:, 1]
+    lx, ly = SMOOTHING["l_x"], SMOOTHING["l_y"]
+    out, secs = {}, {}
+    for name, v in params.items():
+        cols = v.reshape(len(x), -1)
+        hi = SMOOTHING["max"].get(name)
+        sm = np.empty_like(cols)
+        for j in range(cols.shape[1]):
+            field = f"{name}[{j}]" if cols.shape[1] > 1 else name
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sm[:, j] = smooth_field(x, y, cols[:, j], lx, ly, max=hi,
+                                    device="cuda")
+            torch.cuda.synchronize()
+            secs[field] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            clamped = cols[:, j] if hi is None else np.minimum(cols[:, j], hi)
+            want = native.gaussian_2d_weight(x, y, x, y, lx, ly, clamped)
+            want = want if hi is None else np.minimum(want, hi)
+            host = time.perf_counter() - t0
+            err = float(np.max(np.abs(sm[:, j] / want - 1)))
+            print(f"smoothed {field}: {len(x)} experts, card f64 "
+                  f"{secs[field]:.4f} s, native host {host:.3f} s, max rel "
+                  f"err {err:.3e} (rtol {SMOOTH_RTOL}), range "
+                  f"[{sm[:, j].min():.4g}, {sm[:, j].max():.4g}] from "
+                  f"[{cols[:, j].min():.4g}, {cols[:, j].max():.4g}]")
+            require(np.isfinite(sm[:, j]).all(), f"{field}: non-finite")
+            np.testing.assert_allclose(sm[:, j], want, rtol=SMOOTH_RTOL,
+                                       err_msg=f"smoothed {field}")
+            require(hi is None or sm[:, j].max() <= hi,
+                    f"{field} above its limit {hi}")
+        out[name] = sm.reshape(v.shape)
+    return out, secs
+
+
+def phase_smoothed(cuda_gpr, inp, fitted, rmse_fit):
+    """run_examples.sh step 6 on phase 6's fit: smooth the hyperparameter
+    fields (smoothed_fields), then execute_buckets with them and
+    optimise=False, as LocalExpertOI.run does for the follow-up config that
+    smooth_hyperparameters writes. Returns the launches of the re-predict,
+    {kernel: launches}."""
+    from gpsat_tpu_torch.local_experts import execute_buckets, make_engine
+    from gpsat_tpu_torch.models.exact_gpr import GPRModel
+
+    smoothed, secs = smoothed_fields(inp, fitted["params"])
+    print(f"smoothing on the card: {len(secs)} fields, "
+          f"{sum(secs.values()):.4f} s, per field "
+          f"{ {k: round(v, 4) for k, v in secs.items()} }")
+    engine = make_engine(GPRModel, ARCTIC_MODEL["init_params"],
+                         ARCTIC_MODEL["constraints"], coords_dim=3,
+                         device="cuda")
+    per_level = []
+
+    def on_level(ids, result, f_bar, per_expert_time):
+        per_level.append(cuda_gpr.launch_counts().get("posterior_predict", 0))
+    E = len(inp["X_list"])
+    points = sum(len(q) for q in inp["pred_list"])
+    cuda_gpr.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = execute_buckets(
+        engine, inp["X_list"], inp["obs_list"], inp["pred_list"],
+        coords_scale=ARCTIC_MODEL["init_params"]["coords_scale"],
+        overrides=smoothed, optimise=False, on_bucket=on_level)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda_gpr.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"smoothed re-predict on {engine.device} in {engine.dtype}: E={E} "
+          f"execute {wall:.3f} s ({E / wall:.2f} experts/s, "
+          f"{points / wall:.0f} prediction points/s), peak device memory "
+          f"{peak:.2f} GiB, launches={launches}")
+    for b, n in zip(out["buckets"], np.diff([0] + per_level)):
+        print(f"  level N={b['n_max']} P={b['p_max']}: {b['experts']} "
+              f"experts, {b['seconds']:.3f} s, engine "
+              f"{b['engine_seconds']:.3f} s, posterior_predict launches {n}")
+    require(len(per_level) == len(out["buckets"]) and
+            all(n > 0 for n in np.diff([0] + per_level)),
+            f"a level ran without the predict kernel: {per_level}")
+    require(launches.get("nlml_vg", 0) == 0,
+            f"the vg kernel ran with optimise=False: {launches}")
+    require((out["iterations"] == 0).all(), "an expert took L-BFGS steps")
+    require(np.isfinite(out["objective"]).all(), "non-finite objective")
+    valid = pred_valid(out)
+    for k in ("f*", "f*_var", "y_var"):
+        require(np.isfinite(out["preds"][k][valid]).all(), f"non-finite {k}")
+    perr, oerr = check_gpr_against_f64(inp, out, engine.kernel,
+                                       params=smoothed, hold_objective=False,
+                                       name="smoothed re-predict vs f64")
+    print(f"smoothed re-predict vs f64 at the smoothed parameters (all {E} "
+          f"experts): predictions max_abs_err {perr:.3e}; f32 objective "
+          f"(ops/gpr.nlml_fused) max_abs_err {oerr:.3e}, not held")
+    pred_xy = np.concatenate(inp["pred_list"])[:, :2]
+    rmse = float(np.sqrt(np.mean(
+        (out["preds"]["f*"][valid] - truth_field(*pred_xy.T)) ** 2)))
+    print(f"smoothed re-predict f* against the truth field at "
+          f"{len(pred_xy)} points: RMSE {rmse:.5f} (phase 6's fit "
+          f"{rmse_fit:.5f}, observation noise {ARCTIC['noise']})")
+    require(rmse < ARCTIC["noise"], f"RMSE {rmse} not below the noise")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1433,7 +1570,8 @@ def main():
     launches["sgpr_stream2"] = s_launches["stream"]["sgpr_stream2"]
     launches["sgpr_vg_mega"] = s_launches["mega"]["sgpr_vg_mega"]
     phase_models(workload, _bench_common(D))
-    gpr_pipe, sgpr_pipe = phase_pipeline(cuda_gpr)
+    gpr_pipe, sgpr_pipe, arctic, fitted, rmse_fit = phase_pipeline(cuda_gpr)
+    smoothed_pipe = phase_smoothed(cuda_gpr, arctic, fitted, rmse_fit)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1464,7 +1602,8 @@ def main():
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": launches[name], **rows[key],
                "pipeline_launches": gpr_pipe.get(name, 0),
-               "pipeline_sgpr_launches": sgpr_pipe.get(name, 0)}
+               "pipeline_sgpr_launches": sgpr_pipe.get(name, 0),
+               "pipeline_smoothed_launches": smoothed_pipe.get(name, 0)}
         for field in ("launches", "max_abs_err", "ms", "plain_ms",
                       "bound_ms", "bound_by"):
             require(row.get(field) is not None, f"{name}: no {field}")

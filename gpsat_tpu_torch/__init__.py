@@ -24,11 +24,21 @@ Layout
                                  engine, results store) and its device half
                                  ``execute_buckets``, which needs neither
                                  pandas nor h5py.
+- ``gpsat_tpu_torch.postprocessing`` : hyperparameter smoothing (f64, on
+                                 the card unless told otherwise; its numpy
+                                 core ``smooth_field`` needs neither pandas
+                                 nor h5py) and prediction gluing.
+- CLIs of run_examples.sh: ``read_and_store`` (step 2), ``bin_data`` (step
+                                 4), ``local_expert_oi`` (steps 5 and 6,
+                                 ``--device``), ``postprocessing`` (step 6).
 - host modules (copies of the JAX package's): ``store`` (HDF5 results
                                  store, the same schema), ``dataloader``,
                                  ``dataprepper``, ``prediction_locations``,
                                  ``config_dataclasses``, ``utils``,
-                                 ``decorators``.
+                                 ``decorators``, ``ncio`` (netCDF without
+                                 xarray), ``datetime_utils``, ``satdata``,
+                                 ``plot_utils``; ``native``, the C++/OpenMP
+                                 host helper built with g++ at first use.
 - ``gpsat_tpu_torch.weights``  : carry parameters and optimiser states over
                                  from the JAX package as numpy arrays.
 

@@ -4,18 +4,13 @@
 Re-designed equivalent of the reference's DataLoader (GPSat/dataloader.py,
 3277 LoC): universal load from DataFrame/CSV/HDF5(parquet/pickle/npy), `where`
 dict-query pushdown, row/column selection, column-derivation functions, KDTree
-radius selection for local experts and expert-location generation: the
-methods the port's pipeline calls. HDF5 goes through
-gpsat_tpu_torch.store.ResultsStore (h5py) instead of pandas.HDFStore
-(pytables). The JAX package's flat-file sweeps, HDF5 writes, expert-location
-masks and multi-index helpers come with the slices of the port that call them.
-
-netCDF and zarr go through the JAX package's `ncio` there; the port's copy of
-it comes with slice 6 of the port (ROADMAP.md, "Slice 6: data preparation
-and I/O"). Until then a netCDF source is read through xarray where it is
-installed, and raises NotImplementedError otherwise.
+radius selection for local experts, expert-location generation, and flat-file
+sweeps. HDF5 goes through gpsat_tpu_torch.store.ResultsStore (h5py) instead of
+pandas.HDFStore (pytables).
 """
 
+import os
+import re
 import warnings
 from functools import reduce
 
@@ -24,7 +19,7 @@ import pandas as pd
 from scipy.spatial import KDTree
 
 from gpsat_tpu_torch.store import ResultsStore
-from gpsat_tpu_torch.utils import config_func, pandas_to_dict
+from gpsat_tpu_torch.utils import config_func, pandas_to_dict, cprint
 
 __all__ = ["DataLoader"]
 
@@ -40,9 +35,9 @@ class DataLoader:
         "parquet": "read_parquet",
         "pkl": "read_pickle",
         "npy": "npy",
-        # netCDF through xarray until the port's ncio (slice 6); zarr
-        # requires the optional zarr/xarray deps (reference suffix map:
-        # GPSat/dataloader.py:32-33)
+        # netCDF reads natively via gpsat_tpu_torch.ncio (h5py for netCDF4,
+        # scipy.io for netCDF3); zarr requires the optional zarr/xarray deps
+        # (reference suffix map: GPSat/dataloader.py:32-33)
         "nc": "netcdf",
         "nc4": "netcdf",
         "cdf": "netcdf",
@@ -156,17 +151,15 @@ class DataLoader:
             return ResultsStore(source, mode="r")
         if _engine == "npy":
             return pd.DataFrame(np.load(source, **kwargs))
-        if _engine in ("netcdf", "nc", "xarray", "zarr"):
-            try:
+        if _engine in ("netcdf", "nc", "xarray"):
+            from gpsat_tpu_torch import ncio
+            if ncio.have_xarray():
                 import xarray as xr
-            except ImportError:
-                raise NotImplementedError(
-                    f"engine: {_engine} needs xarray or the port's ncio, "
-                    "which comes with slice 6 of the port (data preparation "
-                    "and I/O)") from None
-            if _engine == "zarr":
-                return xr.open_zarr(source, **kwargs)
-            return xr.open_dataset(source, **kwargs)
+                return xr.open_dataset(source, **kwargs)
+            return ncio.read_netcdf(source, **kwargs)
+        if _engine == "zarr":
+            from gpsat_tpu_torch import ncio
+            return ncio.open_zarr(source, **kwargs)
         reader = getattr(pd, _engine, None)
         assert reader is not None, f"engine: {_engine} is not a pandas reader"
         return reader(source, **kwargs)
@@ -189,24 +182,28 @@ class DataLoader:
                 df = df.reset_index()
             return df
 
-        # gridded sources (xarray Dataset/DataArray duck type; the JAX
-        # package's native NcDataset comes with the port's ncio, slice 6) —
-        # where conditions on coordinate dimensions push down BEFORE
-        # densification (reference: GPSat/dataloader.py:1126-1155)
+        # gridded sources (native NcDataset, or xarray Dataset/DataArray when
+        # installed) — where conditions on coordinate dimensions push down
+        # BEFORE densification (reference: GPSat/dataloader.py:1126-1155)
         if hasattr(obj, "data_vars") and hasattr(obj, "to_dataframe"):
-            coord_names = set(getattr(obj, "coords", {}))
-            pushed = [w for w in (where or [])
-                      if w.get("col") in coord_names]
-            leftover = [w for w in (where or []) if w not in pushed]
-            out = obj
-            for wd in pushed:
-                wd = dict(wd)
-                negate = wd.pop("negate", False)
-                m = cls._bool_numpy_from_where(
-                    pd.DataFrame({wd["col"]:
-                                  np.asarray(out.coords[wd["col"]])}), wd)
-                out = out.isel(**{wd["col"]: (~m if negate else m)})
-            df = out.to_dataframe().dropna(axis=0, how="all").reset_index()
+            from gpsat_tpu_torch.ncio import NcDataset
+            if isinstance(obj, NcDataset):
+                sub, leftover = obj.sel_where(where)
+                df = sub.to_dataframe()
+            else:   # xarray duck type
+                coord_names = set(getattr(obj, "coords", {}))
+                pushed = [w for w in (where or [])
+                          if w.get("col") in coord_names]
+                leftover = [w for w in (where or []) if w not in pushed]
+                out = obj
+                for wd in pushed:
+                    wd = dict(wd)
+                    negate = wd.pop("negate", False)
+                    m = cls._bool_numpy_from_where(
+                        pd.DataFrame({wd["col"]:
+                                      np.asarray(out.coords[wd["col"]])}), wd)
+                    out = out.isel(**{wd["col"]: (~m if negate else m)})
+                df = out.to_dataframe().dropna(axis=0, how="all").reset_index()
             if leftover:
                 df = df.loc[cls.row_select_bool(df, row_select=leftover)]
             if columns is not None:
@@ -264,6 +261,113 @@ class DataLoader:
             assert not missing, f"col_select columns missing: {missing}"
             df = df.loc[:, col_select]
         return df
+
+    # ------------------------------------------------------------------
+    # flat-file sweeps (raw satellite data ingestion)
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def read_from_multiple_files(cls, file_dirs, file_regex=None, sub_dirs=None,
+                                 read_engine="csv", col_funcs=None,
+                                 row_select=None, col_select=None, verbose=False,
+                                 strict=True, read_kwargs=None, **kwargs):
+        """Read + concat many flat files, deriving columns per file
+        (reference: GPSat/dataloader.py:232)."""
+        if isinstance(file_dirs, str):
+            file_dirs = [file_dirs]
+        if sub_dirs:
+            sub_dirs = [sub_dirs] if isinstance(sub_dirs, str) else sub_dirs
+            file_dirs = [os.path.join(fd, sd) for fd in file_dirs for sd in sub_dirs]
+        read_kwargs = read_kwargs or {}
+        reader = {"csv": pd.read_csv, "tsv": pd.read_csv,
+                  "parquet": pd.read_parquet}.get(read_engine, pd.read_csv)
+
+        files = []
+        for fd in file_dirs:
+            if not os.path.isdir(fd):
+                msg = f"file dir does not exist: {fd}"
+                if strict:
+                    raise FileNotFoundError(msg)
+                warnings.warn(msg)
+                continue
+            for fn in sorted(os.listdir(fd)):
+                full = os.path.join(fd, fn)
+                if os.path.isfile(full) and (file_regex is None or re.search(file_regex, fn)):
+                    files.append(full)
+        if verbose:
+            print(f"reading {len(files)} files")
+
+        out = []
+        for fp in files:
+            df = reader(fp, **read_kwargs)
+            cls.add_cols(df, col_func_dict=col_funcs, filename=fp, verbose=verbose)
+            if row_select is not None:
+                df = df.loc[cls.row_select_bool(df, row_select=row_select)]
+            if col_select is not None:
+                df = df.loc[:, col_select]
+            out.append(df)
+        assert out, f"no files matched regex {file_regex!r} in {file_dirs}"
+        return pd.concat(out, axis=0).reset_index(drop=True)
+
+    @classmethod
+    def read_flat_files(cls, file_dirs, file_regex, sub_dirs=None,
+                        read_csv_kwargs=None, col_funcs=None, row_select=None,
+                        verbose=False, **kwargs):
+        """CSV-flavoured wrapper of read_from_multiple_files
+        (reference: GPSat/dataloader.py:446)."""
+        return cls.read_from_multiple_files(
+            file_dirs=file_dirs, file_regex=file_regex, sub_dirs=sub_dirs,
+            read_engine="csv", col_funcs=col_funcs, row_select=row_select,
+            read_kwargs=read_csv_kwargs, verbose=verbose, **kwargs)
+
+    # ------------------------------------------------------------------
+    # HDF5 write
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def write_to_hdf(cls, df, store, table=None, append=False, config=None,
+                     run_info=None, index_cols=None):
+        """Write a DataFrame (+ config/run-info attrs) to a results store
+        (reference: GPSat/dataloader.py:646)."""
+        own = False
+        if isinstance(store, str):
+            store = ResultsStore(store, mode="a")
+            own = True
+        assert table is not None, "table must be provided"
+        try:
+            if append:
+                store.append(table, df, index_cols=index_cols)
+            else:
+                store.put(table, df, index_cols=index_cols)
+            if config is not None:
+                store.set_attr(table, "config", config)
+            if run_info is not None:
+                store.set_attr(table, "run_info", run_info)
+        finally:
+            if own:
+                store.close()
+
+    @classmethod
+    def hdf_tables_in_store(cls, store=None, path=None):
+        """(reference: GPSat/dataloader.py:718)"""
+        if store is None:
+            with ResultsStore(path, mode="r") as s:
+                return s.keys()
+        return store.keys()
+
+    @staticmethod
+    def get_attribute_from_table(source, table, attribute_name):
+        """(reference: GPSat/dataloader.py:2990)"""
+        own = isinstance(source, str)
+        store = ResultsStore(source, mode="r") if own else source
+        try:
+            return store.get_attr(table, attribute_name)
+        except Exception as e:
+            warnings.warn(f"could not read attribute {attribute_name} from {table}: {e}")
+            return None
+        finally:
+            if own:
+                store.close()
 
     # ------------------------------------------------------------------
     # local (per-expert) selection
@@ -352,6 +456,83 @@ class DataLoader:
     # expert-location generation
     # ------------------------------------------------------------------
 
+    @staticmethod
+    def get_masks_for_expert_loc(ref_data, el_masks=None, obs_col=None,
+                                 dims=None, reduce_dims=("date", "t")):
+        """Build expert-location masks from a reference dataset
+        (reference: GPSat/dataloader.py:2716; there the reference data is an
+        xarray object — here it is a long-format DataFrame, the repo's native
+        gridded representation).
+
+        el_masks entries:
+        - "had_obs": keep cells where `obs_col` has any non-NaN value across
+          the reduce dimensions (reference reduces over 'date').
+        - {"grid_space": g, "dims": [...]}: keep a regular coarse subgrid of
+          the unique per-dim coordinate values (utils.sparse_true_array).
+        - any other dict: passed through untouched (a row-select where-dict
+          consumed directly by generate_local_expert_locations).
+
+        Returns a list of masks; DataFrame masks hold the *allowed*
+        coordinate combinations (semi-join semantics).
+
+        `ref_data` may also be an xarray DataArray/Dataset (the reference's
+        native type): it is duck-typed via `.coords`/`.to_dataframe` so no
+        xarray import is needed here — grid_space masks read the coordinate
+        vectors straight off `.coords`, and had_obs masks reduce over the
+        gridded values via the long-format conversion.
+        """
+        from gpsat_tpu_torch.utils import sparse_true_array
+
+        is_xr = hasattr(ref_data, "coords") and hasattr(ref_data,
+                                                        "to_dataframe")
+
+        def _coord_vals(dim):
+            if is_xr:
+                return np.asarray(ref_data.coords[dim].values)
+            return np.unique(np.asarray(ref_data[dim]))
+
+        if is_xr and any(m == "had_obs" for m in el_masks or []):
+            # xarray -> long format once; DataArrays need a name for
+            # to_dataframe
+            da = ref_data
+            if obs_col is not None and hasattr(da, "data_vars") \
+                    and obs_col in getattr(da, "data_vars", {}):
+                da = da[obs_col]
+            name = getattr(da, "name", None) or obs_col or "obs"
+            ref_df = da.rename(name).to_dataframe().reset_index() \
+                if hasattr(da, "rename") else da.to_dataframe().reset_index()
+            obs_col = name
+        else:
+            ref_df = ref_data
+
+        masks = []
+        for m in el_masks or []:
+            if isinstance(m, str):
+                if m == "had_obs":
+                    assert obs_col is not None, "had_obs mask needs obs_col"
+                    cell_dims = dims or [c for c in ref_df.columns
+                                         if c != obs_col
+                                         and c not in reduce_dims]
+                    had = (ref_df.groupby(cell_dims)[obs_col]
+                           .apply(lambda s: s.notna().any()))
+                    masks.append(had[had].index.to_frame(index=False))
+                else:
+                    cprint(f"mask: {m} not understood", "FAIL")
+            elif isinstance(m, dict) and "grid_space" in m:
+                mdims = m["dims"] if isinstance(m["dims"], list) else [m["dims"]]
+                coord_vals = [_coord_vals(d2) for d2 in mdims]
+                keep = sparse_true_array(
+                    tuple(len(v) for v in coord_vals),
+                    grid_space=int(m["grid_space"]))
+                mesh = np.meshgrid(*coord_vals, indexing="ij")
+                masks.append(pd.DataFrame(
+                    {d2: mm[keep] for d2, mm in zip(mdims, mesh)}))
+            elif isinstance(m, dict):
+                masks.append(m)
+            else:
+                cprint(f"mask: {m} not understood", "FAIL")
+        return masks
+
     @classmethod
     def generate_local_expert_locations(cls, loc_dims, ref_data=None,
                                         format_type=None, masks=None,
@@ -374,8 +555,8 @@ class DataLoader:
             keep = np.ones(len(df), dtype=bool)
             for m in masks:
                 if isinstance(m, pd.DataFrame):
-                    # allowed-coordinate mask: semi-join on the shared
-                    # columns
+                    # allowed-coordinate mask (get_masks_for_expert_loc):
+                    # semi-join on the shared columns
                     cols = [c for c in m.columns if c in df.columns]
                     assert cols, \
                         f"mask DataFrame shares no columns with locations " \
@@ -399,13 +580,50 @@ class DataLoader:
 
     @staticmethod
     def write_to_netcdf(ds, path, mode="w", **to_netcdf_kwargs):
-        """Write a gridded dataset to netCDF (reference:
-        GPSat/dataloader.py:776). xarray objects use their own writer; the
-        native writer (the JAX package's ncio) comes with slice 6 of the
-        port."""
+        """Write a gridded dataset (NcDataset or xarray Dataset) to netCDF
+        (reference: GPSat/dataloader.py:776). xarray objects use their own
+        writer when the package is installed; otherwise the native
+        dimension-scale HDF5 writer (gpsat_tpu_torch.ncio) handles both."""
         if hasattr(ds, "to_netcdf"):
             ds.to_netcdf(path=path, mode=mode, **to_netcdf_kwargs)
             return path
-        raise NotImplementedError(
-            "write_to_netcdf of a non-xarray dataset needs the port's ncio, "
-            "which comes with slice 6 of the port (data preparation and I/O)")
+        from gpsat_tpu_torch.ncio import write_netcdf
+        return write_netcdf(ds, path, mode=mode, **to_netcdf_kwargs)
+
+    # ------------------------------------------------------------------
+    # multi-index helpers
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def make_multiindex_df(idx_dict, **kwargs):
+        """Make {name: df} with a constant multi-index from idx_dict
+        (reference: GPSat/dataloader.py:2451)."""
+        idx_dict = pandas_to_dict(idx_dict)
+        out = {}
+        for name, df in kwargs.items():
+            if isinstance(df, (np.ndarray, list)):
+                df = pd.DataFrame(np.asarray(df))
+            midx = pd.MultiIndex.from_tuples([tuple(idx_dict.values())] * len(df),
+                                             names=list(idx_dict.keys()))
+            df = df.copy()
+            df.index = midx
+            out[name] = df
+        return out
+
+    @staticmethod
+    def mindex_df_to_arrays(df, value_cols=None, dim_prefix="_dim_"):
+        """Extract {col: ndarray} from a table row-set with `_dim_*` columns —
+        the parameter-loading path (reference equivalent:
+        GPSat/dataloader.py:2529 mindex_df_to_mindex_dataarray)."""
+        from gpsat_tpu_torch.utils import dataframe_to_array
+        df = df.reset_index(drop=True)
+        dim_cols = sorted([c for c in df.columns if re.match(rf"^{dim_prefix}\d+$", c)])
+        if value_cols is None:
+            value_cols = [c for c in df.columns if c not in dim_cols]
+        out = {}
+        for vc in value_cols:
+            if dim_cols:
+                out[vc] = dataframe_to_array(df, vc, idx_col=dim_cols, dropna=False)
+            else:
+                out[vc] = df[vc].values
+        return out

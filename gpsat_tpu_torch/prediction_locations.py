@@ -8,11 +8,9 @@ radius culling). Missing coordinate dimensions are filled from the expert
 location.
 
 The reference's numba gufunc `_max_dist_bool` (prediction_locations.py:18) is
-replaced with a chunked vectorised numpy radius cull. The JAX package sends
-inputs of 100 000 rows or more to its native C++/OpenMP helper
-(gpsat_tpu/native); the port's copy of that helper comes with slice 5 of the
-port (ROADMAP.md), so until then every input takes the numpy cull, which
-gives the same mask.
+replaced with a chunked vectorised numpy radius cull; inputs of 100 000 rows
+or more go through the native C++/OpenMP helper (gpsat_tpu_torch/native),
+which gives the same mask.
 """
 
 import numpy as np
@@ -24,10 +22,17 @@ from gpsat_tpu_torch.utils import match, to_array
 __all__ = ["PredictionLocations", "max_dist_bool"]
 
 
-def max_dist_bool(locs, ref_loc, max_dist, chunk=4_000_000):
+def max_dist_bool(locs, ref_loc, max_dist, chunk=4_000_000, use_native=True):
     """Bool mask of rows of `locs` [n, d] within euclidean `max_dist` of
-    `ref_loc` [d]; chunked to bound memory for ~1e8-row inputs."""
+    `ref_loc` [d]; chunked to bound memory for ~1e8-row inputs.
+
+    Large inputs route through the native C++/OpenMP kernel
+    (gpsat_tpu_torch/native/hostops.cpp) when available."""
     locs = np.asarray(locs)
+    if use_native and len(locs) >= 100_000:
+        from gpsat_tpu_torch import native
+        if native._load() is not None:
+            return native.max_dist_bool(locs, ref_loc, max_dist)
     ref = np.asarray(ref_loc).reshape(-1)
     out = np.empty(len(locs), dtype=bool)
     md2 = float(max_dist) ** 2

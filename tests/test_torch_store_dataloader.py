@@ -587,3 +587,62 @@ def test_execute_buckets_runs_without_pandas_h5py_or_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "buckets 3 experts 4" in res.stdout
+
+
+HOST_GUARD = textwrap.dedent("""
+    import sys
+    for name in ("pandas", "h5py", "matplotlib", "jax"):
+        sys.modules[name] = None          # any import of them now fails
+    import importlib
+    import json
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    for m in ("postprocessing", "native", "native.build", "utils",
+              "datetime_utils", "ncio", "read_and_store", "bin_data",
+              "local_expert_oi", "satdata", "plot_utils"):
+        importlib.import_module("gpsat_tpu_torch." + m)
+    from gpsat_tpu_torch import native, utils
+    from gpsat_tpu_torch import postprocessing
+    from gpsat_tpu_torch.postprocessing import gaussian_2d_smooth, smooth_field
+
+    with open("configs/example_read_and_store_raw_data.json") as f:
+        cfg = json.load(f)
+    names = [v["func"] for v in cfg["col_funcs"].values()
+             if v["func"].startswith("gpsat_tpu.")]
+    funcs = [utils._resolve_func(n) for n in names]
+    assert funcs == [utils.WGS84toEASE2, utils.datetime_to_day_float], funcs
+
+    assert native._load() is not None, "native library not loaded"
+    rng = np.random.default_rng(0)
+    x, y = rng.uniform(-5e5, 5e5, (2, 300))
+    v = np.sin(x / 1e5)
+    v[::9] = np.nan
+    postprocessing.BLOCK_BYTES = 8 * len(x) * 64  # blocks of 64 rows
+    got = gaussian_2d_smooth(x, y, x, y, 4e5, 4e5, v, device="cpu")
+    want = native.gaussian_2d_weight(x, y, x, y, 4e5, 4e5, v)
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    clamped = smooth_field(x, y, v, 4e5, 4e5, max=0.3, device="cpu")
+    assert np.all(clamped <= 0.3)
+    inside = native.max_dist_bool(np.stack([x, y], 1), [0.0, 0.0], 2e5)
+    assert np.array_equal(inside, np.hypot(x, y) < 2e5)
+    loaded = sorted(m for m, v in sys.modules.items() if v is not None and (
+        m.split(".")[0] in ("pandas", "h5py", "matplotlib", "jax", "jaxlib")
+        or m == "gpsat_tpu" or m.startswith("gpsat_tpu.")))
+    assert not loaded, loaded
+    print("resolved", names, "to", [f.__module__ for f in funcs])
+""")
+
+
+def test_host_modules_import_and_smooth_without_pandas_h5py_or_jax():
+    """Every module of the data-preparation and post-processing slice
+    imports with pandas, h5py, matplotlib and jax blocked; the config
+    functions named under gpsat_tpu.utils resolve in gpsat_tpu_torch.utils;
+    the smoother and the native helper run there, as on the card's machine,
+    and no module of the JAX package is loaded."""
+    env = {**os.environ, "PYTHONPATH": REPO}
+    res = subprocess.run([sys.executable, "-c", HOST_GUARD], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "to ['gpsat_tpu_torch.utils', 'gpsat_tpu_torch.utils']" in \
+        res.stdout
