@@ -46,7 +46,19 @@ Phases (any failure exits non-zero; nothing is caught):
      smoother; then execute_buckets with the smoothed parameters and
      optimise=False: the predict kernel on every level and no vg kernel,
      every expert at 0 iterations and against f64 at the smoothed
-     parameters, RMSE against the truth field.
+     parameters, RMSE against the truth field;
+  8. the other model families, which run no kernel of the port (torch ops
+     and autograd): the bench `svgp` workload (E=128, N=1000, P=400, D=3,
+     M=128, Adam lr 5e-2, one chunk of 128) through BatchedSVGP, the bench
+     `vff` workload (E=128, N=1000, P=400, D=2, 361 features, 76 slots)
+     through BatchedVFF (m=10) and BatchedASVGP (m=19; in f64, see
+     phase_family_bench), cold and warm, every expert's ELBO and
+     predictions against f64 at its fitted state; then SVGPModel, VFFModel
+     and ASVGPModel through make_engine(get_model(...)) and execute_buckets
+     on phase 6's 96 SGPR experts (VFF and ASVGP in boxes about the expert
+     locations), each against f64, converged (VFF, ASVGP) and RMSE against
+     the truth field; then one expert of each per-expert model on the card
+     against its f64 CPU run.
 The line before the last is a JSON object with one entry per kernel (its
 launches in phases 3-4, in phase 6's GPR and SGPR runs and in phase 7); the
 last line is {"ok": true, "device": {...}}. Imports nothing of JAX or
@@ -1070,13 +1082,15 @@ def buckets_of(inp):
                         batch_size=len(inp["obs_list"]))
 
 
-def assembled(inp, bk):
-    """assemble_bucket's padded arrays of one bucket of `inp`."""
+def assembled(inp, bk, coords_scale=None):
+    """assemble_bucket's padded arrays of one bucket of `inp` (coordinates
+    scaled by ARCTIC_MODEL's coords_scale unless given another)."""
     from gpsat_tpu_torch.local_experts import assemble_bucket
-    scale = np.atleast_2d(ARCTIC_MODEL["init_params"]["coords_scale"])
+    scale = np.atleast_2d(ARCTIC_MODEL["init_params"]["coords_scale"]
+                          if coords_scale is None else coords_scale)
     return assemble_bucket(bk, inp["X_list"], inp["obs_list"],
                            inp["pred_list"], scale.astype(float),
-                           np.ones((1, 1)))
+                           np.ones((1, 1)), expert_locs=inp.get("experts"))
 
 
 def subset(inp, ids):
@@ -1102,6 +1116,7 @@ def pred_valid(out):
 # f* at phase_kernels' predict tolerance; the variances relative to their own
 # size (f*_var is ~5e-5 here, below that atol of 1e-4)
 PRED_TOL = {"f*": (1e-3, 1e-4), "f*_var": (1e-3, 1e-6), "y_var": (1e-3, 1e-6)}
+PRED_KEYS = tuple(PRED_TOL)
 # the card's f32 run against the CPU's f64 run of the same experts: two
 # optimisations that stop at slightly different parameters (measured on the
 # H100: f* 2.7e-4 apart, f*_var 1.0 % and y_var 0.5 % relative); the limits
@@ -1142,7 +1157,7 @@ def check_gpr_against_f64(inp, out, kernel, params=None,
     ref = {k: np.full_like(out["preds"][k], np.nan) for k in PRED_TOL}
     oerr = 0.0
     for bk in buckets_of(inp):
-        X, y, mask, Xs, _, _ = assembled(inp, bk)
+        X, y, mask, Xs, *_ = assembled(inp, bk)
         ids = bk["indices"]
         for s in range(0, len(ids), 64):
             part = ids[s:s + 64]
@@ -1175,7 +1190,7 @@ def compare_level(cuda_gpr, inp, out, kernel, chunk=512):
     f32 on the card, in chunks of `chunk` experts. Returns the level's N,
     its experts and the largest errors."""
     bk = buckets_of(inp)[-1]
-    X, y, mask, Xs, _, _ = assembled(inp, bk)
+    X, y, mask, Xs, *_ = assembled(inp, bk)
     ids = bk["indices"]
     errs = {"vg": 0.0, "value": 0.0, "predict": 0.0}
     for s in range(0, len(ids), chunk):
@@ -1193,9 +1208,10 @@ def compare_level(cuda_gpr, inp, out, kernel, chunk=512):
     return bk["n_max"], len(ids), errs
 
 
-def pick_spread(inp, n=16, top=3):
+def pick_spread(inp, n=16, top=1):
     """n experts spread over the N levels: evenly through each level's
-    experts, at most `top` from the largest level (the CPU's f64 cost)."""
+    experts, at most `top` from the largest level (the CPU's f64 cost: with
+    3 of them, 100 s of the card host's CPU, a quarter of the script)."""
     levels = {}
     for bk in buckets_of(inp):
         levels.setdefault(bk["n_max"], []).extend(bk["indices"].tolist())
@@ -1296,7 +1312,7 @@ def phase_pipeline(cuda_gpr):
     pooled = [i for i, b in enumerate(out["buckets"]) if b["pool_iterations"]]
     bi = pooled[0] if pooled else 0
     bk = buckets_of(inp)[bi]
-    X, y, mask, Xs, _, _ = assembled(inp, bk)
+    X, y, mask, Xs, *_ = assembled(inp, bk)
     direct = gpr_engine().fit_predict_many(X, y, mask, Xs=Xs)
     ids = bk["indices"]
     same = all(np.array_equal(out["params"][k][ids], v)
@@ -1331,13 +1347,11 @@ def phase_pipeline(cuda_gpr):
     return launches, phase_pipeline_sgpr(cuda_gpr, inp), inp, out, rmse
 
 
-def phase_pipeline_sgpr(cuda_gpr, inp):
-    """SGPRModel through make_engine (route and M from init_params) and
-    execute_buckets: experts of the centre with N between 1024 and 2048."""
-    from gpsat_tpu_torch.local_experts import make_engine
-    from gpsat_tpu_torch.models.sgpr import SGPRModel
-    from gpsat_tpu_torch.ops import sgpr as sgpr_math
-    cfg = SGPR_RUN
+def centre_experts(inp, cfg=SGPR_RUN):
+    """The SGPR run's experts: the cfg["experts"] nearest the centre whose
+    observations within cfg["radius"] number between 1024 and 2048 (one
+    level of 2048). Returns execute_buckets' lists, their locations
+    (`experts`) and their N (`n`)."""
     obs_xyt, obs_z = inp["obs"]
     ex = inp["experts"]
     centre = np.argsort(np.abs(ex[:, 0]) + np.abs(ex[:, 1]), kind="stable")
@@ -1345,10 +1359,22 @@ def phase_pipeline_sgpr(cuda_gpr, inp):
                                      ex[0, 2], cfg["radius"])
     n = np.array([len(o) for o in obs_list])
     keep = np.flatnonzero((n > 1024) & (n <= 2048))[:cfg["experts"]]
-    require(len(keep) == cfg["experts"], f"{len(keep)} SGPR experts")
-    sub = {"X_list": [X_list[i] for i in keep],
-           "obs_list": [obs_list[i] for i in keep],
-           "pred_list": [inp["pred_list"][i] for i in centre[keep]]}
+    require(len(keep) == cfg["experts"], f"{len(keep)} centre experts")
+    return {"X_list": [X_list[i] for i in keep],
+            "obs_list": [obs_list[i] for i in keep],
+            "pred_list": [inp["pred_list"][i] for i in centre[keep]],
+            "experts": ex[centre[keep]], "n": n[keep]}
+
+
+def phase_pipeline_sgpr(cuda_gpr, inp):
+    """SGPRModel through make_engine (route and M from init_params) and
+    execute_buckets: experts of the centre with N between 1024 and 2048."""
+    from gpsat_tpu_torch.local_experts import make_engine
+    from gpsat_tpu_torch.models.sgpr import SGPRModel
+    from gpsat_tpu_torch.ops import sgpr as sgpr_math
+    cfg = SGPR_RUN
+    sub = centre_experts(inp)
+    n = sub["n"]
     init = dict(ARCTIC_MODEL["init_params"], num_inducing_points=cfg["M"],
                 route=cfg["route"])
     engine = make_engine(SGPRModel, init, ARCTIC_MODEL["constraints"],
@@ -1363,10 +1389,10 @@ def phase_pipeline_sgpr(cuda_gpr, inp):
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in cuda_gpr.launch_counts().items() if v}
     conv = float(np.mean(out["converged"]))
-    print(f"pipeline SGPR: E={len(keep)} N (0, 50, 100 %) "
-          f"{np.percentile(n[keep], [0, 50, 100])} M={cfg['M']} "
+    print(f"pipeline SGPR: E={len(n)} N (0, 50, 100 %) "
+          f"{np.percentile(n, [0, 50, 100])} M={cfg['M']} "
           f"route={cfg['route']} converged={conv:.4f} {wall:.3f} s "
-          f"({len(keep) / wall:.2f} experts/s) launches={launches}; levels "
+          f"({len(n) / wall:.2f} experts/s) launches={launches}; levels "
           f"(N, experts, pool iterations) "
           f"{[(b['n_max'], b['experts'], b['pool_iterations']) for b in out['buckets']]}")
     require(launches.get("cholinv", 0) > 0 and
@@ -1384,7 +1410,7 @@ def phase_pipeline_sgpr(cuda_gpr, inp):
     width = valid.shape[1]
     ref = {k: np.full_like(out["preds"][k], np.nan) for k in PRED_TOL}
     for bk in buckets_of(sub):
-        X, y, mask, Xs, _, _ = assembled(sub, bk)
+        X, y, mask, Xs, *_ = assembled(sub, bk)
         for s in range(0, len(bk["indices"]), 32):
             ids = bk["indices"][s:s + 32]
             rows = slice(s, s + len(ids))
@@ -1401,7 +1427,7 @@ def phase_pipeline_sgpr(cuda_gpr, inp):
                 kernel=engine.kernel, jitter=engine.jitter)
             for k in ref:
                 ref[k][ids] = pr[k].cpu().numpy()[:, :width]
-    hold_preds(f"SGPR vs f64 ({len(keep)} experts)", out["preds"], ref, valid)
+    hold_preds(f"SGPR vs f64 ({len(n)} experts)", out["preds"], ref, valid)
     return launches
 
 
@@ -1527,6 +1553,349 @@ def phase_smoothed(cuda_gpr, inp, fitted, rmse_fit):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the other model families: SVGP, VFF and ASVGP
+# ---------------------------------------------------------------------------
+
+# the bench `svgp` and `vff` workloads (bench.py:480-490); ASVGP on the vff
+# shape with 19 B-splines per dimension, VFF's (2 * 10 - 1)**2 = 361 features
+SVGP_BENCH = dict(E=128, N=1000, P=400, D=3, M=128)
+SVGP_OPT = {"max_iter": 1000, "learning_rate": 5e-2}
+VFF_BENCH = dict(E=128, N=1000, P=400, D=2, m=10)
+ASVGP_M = 19
+# the families' pipeline runs, on the SGPR run's 96 centre experts: SVGP on
+# (x, y, t) with the bench recipe; VFF and ASVGP on (x, y) in boxes of
+# +-900 km around each expert, wider than the 850 km selection radius, so
+# that the expert locations (not the data's extent) fix every box
+FAMILY_DOMAIN = 900 * KM
+# the f32 ELBO at the fitted state against its f64 evaluation: relative
+# limits, about four times the largest measured on the H100 (SVGP 3.1e-5,
+# VFF 1.5e-5, ASVGP 3.6e-4)
+ELBO_RTOL = {"SVGPModel": 1.5e-4, "VFFModel": 6e-5, "ASVGPModel": 1.5e-3}
+# The bench svgp predictions against f64: PRED_TOL but for f*, where 6 of
+# 51 200 values were 1.2e-4 to 2.1e-4 off on the H100 (the f32 factor of Kuu
+# at M=128, jitter 1e-6); held at atol 1e-3
+SVGP_BENCH_TOL = dict(PRED_TOL, **{"f*": (1e-3, 1e-3)})
+
+
+def family_f64(family, engine, arrays, out_rows, chunk=32):
+    """The family's ops in f64 on the card at a fitted state: (ELBO [B],
+    predictions {key: [B, P]}) of the padded bucket `arrays` (X, y, mask,
+    Xs and, for VFF and ASVGP, the boxes a, b), `out_rows` the engine's
+    params (and, for SVGP, inducing_mask) of the same rows, in chunks."""
+    from gpsat_tpu_torch.ops import svgp as svgp_math
+    X, y, mask, Xs = arrays[:4]
+    B = len(X)
+    elbo = np.empty(B)
+    preds = {k: np.empty(Xs.shape[:2]) for k in PRED_TOL}
+    for s in range(0, B, chunk):
+        rows = slice(s, min(s + chunk, B))
+
+        def t(a, dtype=torch.float64):
+            return torch.tensor(np.asarray(a)[rows], dtype=dtype,
+                                device="cuda")
+        prm = {k: t(out_rows["params"][k]) for k in engine.HYPER_NAMES}
+        if family == "SVGPModel":
+            p = out_rows["params"]
+            args = (t(p["inducing_mean"]), t(p["inducing_chol"]))
+            Z = t(p["inducing_points"])
+            zm = t(out_rows["inducing_mask"], torch.bool)
+            e = svgp_math.elbo(prm, *args, t(X), t(y), t(mask, torch.bool),
+                               Z, zm, kernel=engine.kernel,
+                               jitter=engine.jitter)
+            pr = svgp_math.predict(prm, *args, Z, zm, t(Xs),
+                                   kernel=engine.kernel, jitter=engine.jitter)
+        else:
+            a, b = t(arrays[4]), t(arrays[5])
+            e = engine._math.elbo(prm, t(X), t(y), t(mask, torch.bool), a, b,
+                                  engine.ms, kernel=engine.kernel,
+                                  jitter=engine.jitter)
+            pr = engine._math.predict(prm, t(X), t(y), t(mask, torch.bool),
+                                      t(Xs), a, b, engine.ms,
+                                      kernel=engine.kernel,
+                                      jitter=engine.jitter)
+        elbo[rows] = e.cpu().numpy()
+        for k in preds:
+            preds[k][rows] = pr[k].cpu().numpy()
+    return elbo, preds
+
+
+def hold_family(name, family, objective, elbo64, got, want, valid,
+                tol=PRED_TOL):
+    """Each prediction key at `tol` and the reported ELBO at ELBO_RTOL of
+    the f64 one; prints both."""
+    require(np.isfinite(objective).all(), f"{name}: non-finite ELBO")
+    rel = np.abs(objective / elbo64 - 1)
+    print(f"  {name} ELBO: reported against f64 max rel err {rel.max():.3e} "
+          f"(median {np.median(rel):.3e}, limit {ELBO_RTOL[family]}), "
+          f"median ELBO {np.median(elbo64):.2f}")
+    require(rel.max() <= ELBO_RTOL[family],
+            f"{name}: ELBO off f64 by {rel.max()}")
+    return hold_preds(name, got, want, valid, tol)
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_family_bench():
+    """The bench `svgp` workload through BatchedSVGP (Adam, one chunk of
+    128) and the bench `vff` workload through BatchedVFF and BatchedASVGP
+    (the L-BFGS pool at bench.py's slot rule), cold and warm, each expert
+    held against f64 at its fitted state.
+
+    BatchedASVGP runs in f64 here: in f32 its L-BFGS walks on this workload
+    into lengthscales at their bound of 50 and a noise variance at its bound
+    of 1e-5, where the f32 bound is off the f64 one by up to 1e12. The JAX
+    package's f32 engine does the same on these inputs, on the CPU
+    (tests/test_torch_vff.py::
+    test_f32_asvgp_runs_to_the_bounds_on_the_bench_vff_inputs). The f32
+    run is timed and its experts off f64 are counted and printed, not held
+    (ROADMAP.md, reference behaviours)."""
+    from gpsat_tpu_torch.profile_sweep import (bench_svgp_engine,
+                                               bench_vff_engine, sgpr_slots,
+                                               vff_slots, workload)
+    from gpsat_tpu_torch.models.batched import BatchedASVGP
+    c = SVGP_BENCH
+    v = VFF_BENCH
+    slots = vff_slots(v["E"], v["N"], v["m"], v["D"])
+    runs = (("SVGPModel", bench_svgp_engine(c["D"], c["M"]), c,
+             sgpr_slots(c["E"], c["N"], c["M"]), SVGP_BENCH_TOL),
+            ("VFFModel", bench_vff_engine(v["D"], v["m"]), v, slots,
+             PRED_TOL),
+            ("ASVGPModel", bench_vff_engine(v["D"], ASVGP_M,
+                                            engine=BatchedASVGP,
+                                            dtype=torch.float64), v, slots,
+             PRED_TOL),
+            ("ASVGPModel f32", bench_vff_engine(v["D"], ASVGP_M,
+                                                engine=BatchedASVGP), v,
+             slots, None))
+    for name, engine, c, slots, tol in runs:
+        family = name.split()[0]
+        E, N, P, D = c["E"], c["N"], c["P"], c["D"]
+        X, y, mask, Xs = workload(E, N, P, D)
+        require(engine.device.type == "cuda" and engine.dtype == (
+            torch.float64 if name == "ASVGPModel" else torch.float32),
+            f"{name}: engine on {engine.device} in {engine.dtype}")
+        engine._last_pool_iterations = 0
+        if tol is not None:
+            _, cold = timed(lambda: engine.fit_predict_many(
+                X, y, mask, Xs=Xs, slots=slots))
+        torch.cuda.reset_peak_memory_stats()
+        out, warm = timed(lambda: engine.fit_predict_many(X, y, mask, Xs=Xs,
+                                                          slots=slots))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        conv = float(np.mean(out["converged"]))
+        pool = getattr(engine, "_last_pool_iterations", 0)
+        feats = (engine.num_inducing if family == "SVGPModel"
+                 else int(np.prod([m if family == "ASVGPModel" else 2 * m - 1
+                                   for m in engine.ms])))
+        print(f"{name} bench E={E} N={N} P={P} D={D} features={feats} "
+              f"slots={slots} {engine.dtype}: "
+              + (f"cold {cold:.3f} s, " if tol is not None else "")
+              + f"warm {warm:.3f} s ({E / warm:.2f} experts/s), peak "
+              f"{peak:.2f} GiB, iterations (0, 50, 100 %) "
+              f"{np.percentile(out['iterations'], [0, 50, 100]).tolist()}, "
+              f"pool iterations {pool}, converged {conv:.4f}")
+        if family == "SVGPModel":
+            print(f"  SVGPModel plateau-stopped fraction {conv:.4f}")
+            arrays = (X, y, mask, Xs)
+        else:
+            # domain_size None: each box is the expert's data extent
+            arrays = (X, y, mask, Xs, X.min(axis=1) - 1e-8,
+                      X.max(axis=1) + 1e-8)
+        elbo64, ref = family_f64(family, engine, arrays, out)
+        if tol is None:
+            rel = np.abs(out["objective"] / elbo64 - 1)
+            print(f"  {name}: {int(np.sum(rel > 1e-2))} of {E} experts' "
+                  f"ELBO off f64 by more than 1 % (max rel {rel.max():.3e}), "
+                  f"not held")
+            continue
+        for k in PRED_KEYS:
+            require(out["preds"][k].shape == (E, P) and
+                    np.isfinite(out["preds"][k]).all(),
+                    f"{name}: {k} of shape {out['preds'][k].shape} or "
+                    f"non-finite")
+        if family != "SVGPModel":
+            require(conv >= 0.99, f"{name}: converged fraction {conv}")
+            require(pool > 0, f"{name}: the pool did not run")
+        hold_family(f"{name} bench vs f64", family, out["objective"],
+                    elbo64, out["preds"], ref, np.ones((E, P), bool), tol)
+
+
+def phase_family_pipeline(inp):
+    """SVGPModel, VFFModel and ASVGPModel through make_engine(get_model(...))
+    and execute_buckets on the SGPR run's 96 centre experts: every expert
+    against f64 at its fitted state (VFF and ASVGP in boxes of +-900 km
+    about the expert, rebuilt here from the expert locations), converged
+    (VFF, ASVGP) and RMSE against the truth field."""
+    from gpsat_tpu_torch.local_experts import execute_buckets, make_engine
+    from gpsat_tpu_torch.models import get_model
+    sub = centre_experts(inp)
+    cons = ARCTIC_MODEL["constraints"]
+    scale3 = ARCTIC_MODEL["init_params"]["coords_scale"]
+    runs = (
+        ("SVGPModel", sub, scale3,
+         {"num_inducing_points": SVGP_BENCH["M"]}, cons, SVGP_OPT),
+        ("VFFModel", None, scale3[:2],
+         {"num_inducing_features": VFF_BENCH["m"],
+          "domain_size": FAMILY_DOMAIN}, None, None),
+        ("ASVGPModel", None, scale3[:2],
+         {"num_inducing_features": ASVGP_M, "domain_size": FAMILY_DOMAIN},
+         None, None))
+    sub2 = {"X_list": [x[:, :2] for x in sub["X_list"]],
+            "obs_list": sub["obs_list"],
+            "pred_list": [q[:, :2] for q in sub["pred_list"]],
+            "experts": sub["experts"][:, :2]}
+    cons2 = {"lengthscales": {k: v[:2] for k, v in
+                              cons["lengthscales"].items()},
+             "likelihood_variance": cons["likelihood_variance"]}
+    pred_xy = np.concatenate(sub["pred_list"])[:, :2]
+    for family, data, scale, init, c, opt in runs:
+        data = sub2 if data is None else data
+        c = cons2 if c is None else c
+        engine = make_engine(get_model(family),
+                             dict(init, coords_scale=scale), c,
+                             coords_dim=len(scale), optim_kwargs=opt)
+        require(type(engine).__name__ == "Batched" + family[:-5],
+                f"{family}: engine {type(engine).__name__}")
+        out, wall = timed(lambda: execute_buckets(
+            engine, data["X_list"], data["obs_list"], data["pred_list"],
+            coords_scale=scale, expert_locs=data["experts"]))
+        E = len(data["X_list"])
+        conv = float(np.mean(out["converged"]))
+        valid = pred_valid(out)
+        print(f"{family} pipeline E={E} N (0, 50, 100 %) "
+                f"{np.percentile(sub['n'], [0, 50, 100]).tolist()} on "
+                f"{engine.device} in {engine.dtype}: {wall:.3f} s "
+                f"({E / wall:.2f} experts/s), converged {conv:.4f}, levels "
+                f"(N, experts, pool iterations) "
+                f"{[(b['n_max'], b['experts'], b['pool_iterations']) for b in out['buckets']]}, "
+                f"iterations (0, 50, 100 %) "
+                f"{np.percentile(out['iterations'], [0, 50, 100]).tolist()}")
+        for k in PRED_KEYS:
+            require(np.isfinite(out["preds"][k][valid]).all(),
+                    f"{family} pipeline: non-finite {k}")
+        if family != "SVGPModel":
+            require(conv >= 0.99, f"{family} pipeline: converged {conv}")
+        elbo64 = np.empty(E)
+        ref = {k: np.full_like(out["preds"][k], np.nan) for k in PRED_TOL}
+        width = valid.shape[1]
+        for bk in buckets_of(data):
+            arrays = assembled(data, bk, scale)
+            ids = bk["indices"]
+            X, y, mask, Xs, _, _, el = arrays
+            b = len(ids)
+            arrays = (X[:b], y[:b], mask[:b], Xs[:b])
+            rows = {"params": {k: v[ids] for k, v in out["params"].items()}}
+            if family == "SVGPModel":
+                rows["inducing_mask"] = np.isfinite(
+                    rows["params"]["inducing_points"][..., 0])
+            else:
+                half = FAMILY_DOMAIN / np.asarray(scale, dtype=float)
+                off = np.abs(X[:b] - el[:b, None]) * mask[:b, :, None]
+                require(bool((off < half).all()),
+                        f"{family}: data outside the experts' boxes")
+                arrays += (el[:b] - half, el[:b] + half)
+            e64, pr = family_f64(family, engine, arrays, rows)
+            elbo64[ids] = e64
+            for k in ref:
+                ref[k][ids] = pr[k][:, :width]
+        hold_family(f"{family} pipeline vs f64", family, out["objective"],
+                    elbo64, out["preds"], ref, valid)
+        rmse = float(np.sqrt(np.mean(
+            (out["preds"]["f*"][valid] - truth_field(*pred_xy.T)) ** 2)))
+        print(f"  {family} pipeline f* against the truth field at "
+              f"{len(pred_xy)} points: RMSE {rmse:.5f}")
+        require(rmse < ARCTIC["noise"], f"{family}: RMSE {rmse}")
+
+
+# per-expert models against their f64 CPU run: two optimisations (Adam in
+# f32 and in f64 for SVGP, L-BFGS for VFF and ASVGP) that stop at nearby
+# points; each prediction key's atol and the objective's rtol, about four
+# times the largest measured on the H100 (SVGP f* 3.6e-3, f*_var 1.8e-5,
+# y_var 3.7e-5, objective 6.4e-4; VFF 3.5e-5, 1.8e-6, 2.6e-6, 6.9e-6; ASVGP
+# 1.25e-2, 6.3e-5, 6.0e-5, 2.7e-3). ASVGP's limits are the widest because
+# its f32 bound is the least accurate (the fault that makes the bench ASVGP
+# cell run in f64): the f32 run stops where that bound is flat to f32, away
+# from the f64 optimum (f* up to 113 % relative on the H100).
+FAMILY_MODEL_TOL = {
+    "SVGPModel": ({"f*": 1.5e-2, "f*_var": 8e-5, "y_var": 1.5e-4}, 3e-3),
+    "VFFModel": ({"f*": 1.5e-4, "f*_var": 8e-6, "y_var": 1.2e-5}, 3e-5),
+    "ASVGPModel": ({"f*": 5e-2, "f*_var": 2.5e-4, "y_var": 2.5e-4}, 1.1e-2)}
+
+
+def phase_family_models(workload, common):
+    """SVGPModel (one bench `svgp` expert, N=1000, M=128), VFFModel and
+    ASVGPModel (one bench `vff` expert, N=1000, D=2) on the card in f32
+    through a user's calls, against the same model run on the CPU in f64
+    from the same start."""
+    from gpsat_tpu_torch.models import get_model
+    c3 = common(3)
+    c2 = common(2)
+    c2["constraints"]["lengthscales"]["low"] = [0.05] * 2
+    for family, D, extra, c, opt in (
+            ("SVGPModel", 3, {"num_inducing_points": SVGP_BENCH["M"]}, c3,
+             SVGP_OPT),
+            ("VFFModel", 2, {"num_inducing_features": VFF_BENCH["m"]}, c2,
+             c2["optim_kwargs"]),
+            ("ASVGPModel", 2, {"num_inducing_features": ASVGP_M}, c2,
+             c2["optim_kwargs"])):
+        X, y, _, Xs = workload(1, SVGP_BENCH["N"], P, D, seed=11)
+        res = {}
+        for device in ("cuda", "cpu"):
+            model = get_model(family)(
+                coords=X[0], obs=y[0], kernel=c["kernel"],
+                device=None if device == "cuda" else "cpu", **extra)
+            require(model.device.type == device and model.dtype == (
+                torch.float32 if device == "cuda" else torch.float64),
+                f"{family} on {model.device} in {model.dtype}")
+            model.set_parameter_constraints(c["constraints"],
+                                            move_within_tol=True, tol=1e-2)
+            t0 = time.perf_counter()
+            ok = model.optimise_parameters(**opt)
+            preds = model.predict(Xs[0])
+            obj = model.get_objective_function_value()
+            res[device] = (ok, preds, obj, time.perf_counter() - t0)
+        (ok, preds, obj, wall), (ok64, ref, obj64, wall64) = \
+            res["cuda"], res["cpu"]
+        for k in PRED_KEYS:
+            require(preds[k].shape == (P,) and np.isfinite(preds[k]).all(),
+                    f"{family} {k}: shape {preds[k].shape} or non-finite")
+        err = {k: float(np.max(np.abs(preds[k] - ref[k]))) for k in PRED_KEYS}
+        rel = {k: float(np.max(np.abs(preds[k] - ref[k]) / np.abs(ref[k])))
+               for k in PRED_KEYS}
+        print(f"model {family}: card f32 success={ok} objective {obj:.4f} in "
+              f"{wall:.3f} s; CPU f64 success={ok64} objective {obj64:.4f} in "
+              f"{wall64:.3f} s; predictions max_abs_err {err}, max rel err "
+              f"{rel}")
+        atol, otol = FAMILY_MODEL_TOL[family]
+        for k in PRED_KEYS:
+            np.testing.assert_allclose(preds[k], ref[k], rtol=0,
+                                       atol=atol[k], err_msg=f"{family} {k}")
+        np.testing.assert_allclose(obj, obj64, rtol=otol,
+                                   err_msg=f"{family} objective")
+
+
+def phase_families(inp):
+    """Phase 8: the bench workloads of the three families, their pipeline
+    runs and their per-expert models."""
+    from gpsat_tpu_torch.profile_sweep import _bench_common, workload
+    t0 = time.perf_counter()
+    phase_family_bench()
+    t1 = time.perf_counter()
+    phase_family_pipeline(inp)
+    t2 = time.perf_counter()
+    phase_family_models(workload, _bench_common)
+    t3 = time.perf_counter()
+    print(f"phase 8: bench {t1 - t0:.1f} s, pipeline {t2 - t1:.1f} s, "
+          f"models {t3 - t2:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1572,6 +1941,10 @@ def main():
     phase_models(workload, _bench_common(D))
     gpr_pipe, sgpr_pipe, arctic, fitted, rmse_fit = phase_pipeline(cuda_gpr)
     smoothed_pipe = phase_smoothed(cuda_gpr, arctic, fitted, rmse_fit)
+    cuda_gpr.reset_launch_counts()
+    phase_families(arctic)
+    launched = {k: v for k, v in cuda_gpr.launch_counts().items() if v}
+    require(not launched, f"phase 8 launched kernels: {launched}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

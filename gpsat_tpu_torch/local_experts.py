@@ -100,13 +100,21 @@ def make_engine(model, init_params=None, constraints=None, coords_dim=3,
                 optim_kwargs=None, device=None):
     """The batched engine of a model class, configured as `run` configures
     it (gpsat_tpu/local_experts.py:364-378, :564-588): BatchedGPR for
-    GPRModel, BatchedSGPR for SGPRModel (subclasses by name), `coords_scale`
-    marking the lengthscale bounds as scaled, and the rest of `init_params`
-    (kernel, num_inducing_points, SGPR's route, ...) passed to the engine.
-    The engine runs on `device` ("cuda" unless the caller passes another)."""
-    from gpsat_tpu_torch.models.batched import BatchedGPR, BatchedSGPR
+    GPRModel, BatchedSGPR for SGPRModel, BatchedSVGP for SVGPModel,
+    BatchedVFF for VFFModel and BatchedASVGP for ASVGPModel (other classes by
+    their name, ASVGP before SVGP, SGPR and VFF, BatchedGPR last);
+    `coords_scale` marking the lengthscale bounds as scaled, and the rest of
+    `init_params` (kernel, num_inducing_points, SGPR's route, ...) passed to
+    the engine. The engine runs on `device` ("cuda" unless the caller passes
+    another)."""
+    from gpsat_tpu_torch.models.asvgp import ASVGPModel
+    from gpsat_tpu_torch.models.batched import (BatchedASVGP, BatchedGPR,
+                                                BatchedSGPR, BatchedSVGP,
+                                                BatchedVFF)
     from gpsat_tpu_torch.models.exact_gpr import GPRModel
     from gpsat_tpu_torch.models.sgpr import SGPRModel
+    from gpsat_tpu_torch.models.svgp import SVGPModel
+    from gpsat_tpu_torch.models.vff import VFFModel
 
     init_params = dict(init_params or {})
     if isinstance(constraints, dict):
@@ -119,15 +127,17 @@ def make_engine(model, init_params=None, constraints=None, coords_dim=3,
     else:
         constraints = None
 
-    engine_cls = {GPRModel: BatchedGPR, SGPRModel: BatchedSGPR}.get(model)
+    engines = {GPRModel: BatchedGPR, SGPRModel: BatchedSGPR,
+               SVGPModel: BatchedSVGP, VFFModel: BatchedVFF,
+               ASVGPModel: BatchedASVGP}
+    engine_cls = engines.get(model)
     if engine_cls is None:
         # fall back by name for custom subclasses
         name = getattr(model, "__name__", "")
-        if "SVGP" in name or "VFF" in name:
-            raise NotImplementedError(
-                f"model: {name} has no batched engine in gpsat_tpu_torch yet; "
-                "it comes with slice 7 of the port (the other model families)")
-        engine_cls = BatchedSGPR if "SGPR" in name else BatchedGPR
+        engine_cls = (BatchedASVGP if "ASVGP" in name else
+                      BatchedSVGP if "SVGP" in name else
+                      BatchedSGPR if "SGPR" in name else
+                      BatchedVFF if "VFF" in name else BatchedGPR)
     ip = {k: v for k, v in init_params.items()
           if k not in ("coords_scale", "obs_scale", "obs_mean")}
     return engine_cls(coords_dim=coords_dim, constraints=constraints,
@@ -136,15 +146,18 @@ def make_engine(model, init_params=None, constraints=None, coords_dim=3,
 
 
 def assemble_bucket(bk, X_list, obs_list, pred_list, coords_scale, obs_scale,
-                    obs_mean=None, overrides=None, predict=True):
+                    obs_mean=None, overrides=None, predict=True,
+                    expert_locs=None):
     """Padded host arrays of one bucket of `make_buckets` (the JAX package's
     `_assemble`, gpsat_tpu/local_experts.py:469-505).
 
     Inputs are per-expert, in raw units: X_list[i] [n_i, d] coordinates,
     obs_list[i] [n_i] observations, pred_list[i] [p_i, d] prediction
-    coordinates or None; coords_scale [1, d] and obs_scale [1, 1]. Returns
-    (X [B, N, d], y [B, N], mask [B, N], Xs [B, P, d] or None, f_bar [B],
-    overrides [B, ...] or None).
+    coordinates or None; coords_scale [1, d] and obs_scale [1, 1];
+    expert_locs [E, d] the experts' locations or None. Returns (X [B, N, d],
+    y [B, N], mask [B, N], Xs [B, P, d] or None, f_bar [B], overrides
+    [B, ...] or None, expert locations [B, d] in scaled units (zero on
+    padded rows) or None).
     """
     ids = bk["indices"]
     B, Nmax, Pmax = bk["batch_pad"], bk["n_max"], bk["p_max"]
@@ -176,7 +189,12 @@ def assemble_bucket(bk, X_list, obs_list, pred_list, coords_scale, obs_scale,
               np.concatenate([v[ids], np.full((B - len(ids),) + v.shape[1:],
                                               np.nan)], axis=0)
               for k, v in overrides.items()}
-    return X, y, mask, Xs, f_bar, ov
+    el_scaled = None
+    if expert_locs is not None:
+        el_scaled = np.zeros((B, d))
+        el_scaled[:len(ids)] = np.asarray(expert_locs, dtype=float)[ids] \
+            / coords_scale
+    return X, y, mask, Xs, f_bar, ov, el_scaled
 
 
 def _put(out, ids, v):
@@ -189,7 +207,7 @@ def _put(out, ids, v):
 def execute_buckets(engine, X_list, obs_list, pred_list, coords_scale=1.0,
                     obs_scale=1.0, obs_mean=None, overrides=None,
                     optimise=True, predict=True, batch_size=None,
-                    on_bucket=None, verbose=False):
+                    on_bucket=None, verbose=False, expert_locs=None):
     """Fit and predict E experts given as per-expert numpy arrays: group them
     into padded levels (`make_buckets`), assemble each level on the host
     (`assemble_bucket`, one level ahead in a thread while the engine runs the
@@ -199,9 +217,13 @@ def execute_buckets(engine, X_list, obs_list, pred_list, coords_scale=1.0,
 
     Inputs as `assemble_bucket`'s (lists of E entries, raw units); every
     expert is run (`run` leaves out the skipped ones). `overrides`: {param:
-    [E, ...] array, NaN where absent}. `on_bucket(ids, result, f_bar,
-    per_expert_time)`, if given, is called after each level with the
-    engine's result for the experts `ids` (f_bar [B], seconds per expert).
+    [E, ...] array, NaN where absent}. `expert_locs` [E, d], the experts'
+    locations in raw units: each level hands them, scaled, to the engine's
+    `fit_predict_many` (BatchedVFF's box domains centre on them; without
+    them it takes each expert's data centroid).
+    `on_bucket(ids, result, f_bar, per_expert_time)`, if given, is called
+    after each level with the engine's result for the experts `ids` (f_bar
+    [B], seconds per expert).
 
     Returns per-expert arrays: params {name: [E, *engine.param_shape(name)]}
     (NaN where a level holds fewer inducing points than the engine's M),
@@ -240,7 +262,7 @@ def execute_buckets(engine, X_list, obs_list, pred_list, coords_scale=1.0,
         t0 = time.perf_counter()
         arrays = assemble_bucket(bk, X_list, obs_list, pred_list,
                                  coords_scale, obs_scale, obs_mean,
-                                 overrides, predict)
+                                 overrides, predict, expert_locs)
         return arrays, time.perf_counter() - t0
 
     # one-deep prefetch: the next level's host assembly overlaps the current
@@ -249,7 +271,7 @@ def execute_buckets(engine, X_list, obs_list, pred_list, coords_scale=1.0,
         pending = prefetch.submit(assemble, buckets[0]) if buckets else None
         for bki, bk in enumerate(buckets):
             t0 = time.perf_counter()
-            (X, y, mask, Xs, f_bar, ov), t_asm = pending.result()
+            (X, y, mask, Xs, f_bar, ov, el_scaled), t_asm = pending.result()
             if bki + 1 < len(buckets):
                 pending = prefetch.submit(assemble, buckets[bki + 1])
             ids = bk["indices"]
@@ -257,7 +279,7 @@ def execute_buckets(engine, X_list, obs_list, pred_list, coords_scale=1.0,
             t1 = time.perf_counter()
             result = engine.fit_predict_many(
                 X, y, mask, Xs=Xs, optimise=optimise, predict=predict,
-                param_overrides=ov)
+                param_overrides=ov, expert_locs=el_scaled)
             t2 = time.perf_counter()
             b = len(ids)
             bucket_time = t2 - t0
@@ -460,7 +482,8 @@ class LocalExpertOI:
         if param_names is None:
             param_names = engine.param_names
         # only hyperparameters gate the "has all params" check; inducing
-        # points are best-effort warm starts
+        # points and the variational extras (inducing_mean, ...) are
+        # best-effort warm starts
         required = set(engine.HYPER_NAMES)
         E = len(xprt_locs)
         overrides, have = {}, np.ones(E, dtype=bool)
@@ -670,7 +693,8 @@ class LocalExpertOI:
             engine, X_list, obs_list, pred_list, coords_scale=coords_scale,
             obs_scale=obs_scale, obs_mean=obs_mean_cfg, overrides=run_overrides,
             optimise=optimise, predict=predict, batch_size=batch_size,
-            on_bucket=store_bucket, verbose=verbose)
+            on_bucket=store_bucket, verbose=verbose,
+            expert_locs=xprt_locs.loc[run_ids, coords_col].values)
 
         # flush remaining (e.g. only skip records)
         self._flush(store_buffer, store_path, table_suffix, force=True)

@@ -10,24 +10,31 @@ from gpsat_tpu_torch.models.base import BaseGPRModel  # noqa: F401
 from gpsat_tpu_torch.models.batched import BatchedGPR  # noqa: F401
 
 # names of gpsat_tpu.models.get_model whose classes come with a later slice of
-# the port (ROADMAP.md, "Slice 7: the other model families")
-_NOT_PORTED = ("SVGPModel", "GPflowSVGPModel", "VFFModel", "GPflowVFFModel",
-               "ASVGPModel", "GPflowASVGPModel", "KISSGPModel",
-               "GPyTorchKISSGPModel", "MultioutputGPRModel",
+# the port (ROADMAP.md, slice 7b: KISS-GP and the multioutput models)
+_NOT_PORTED = ("KISSGPModel", "GPyTorchKISSGPModel", "MultioutputGPRModel",
                "MultioutputSVGPModel")
 
 
 def get_model(name):
     """Map a model name string to a model class."""
+    from gpsat_tpu_torch.models.asvgp import ASVGPModel
     from gpsat_tpu_torch.models.exact_gpr import GPRModel
     from gpsat_tpu_torch.models.sgpr import SGPRModel
+    from gpsat_tpu_torch.models.svgp import SVGPModel
+    from gpsat_tpu_torch.models.vff import VFFModel
 
     registry = {
         "GPRModel": GPRModel,
         "SGPRModel": SGPRModel,
+        "SVGPModel": SVGPModel,
+        "VFFModel": VFFModel,
+        "ASVGPModel": ASVGPModel,
         # reference-name aliases (config compatibility)
         "GPflowGPRModel": GPRModel,
         "GPflowSGPRModel": SGPRModel,
+        "GPflowSVGPModel": SVGPModel,
+        "GPflowVFFModel": VFFModel,
+        "GPflowASVGPModel": ASVGPModel,
         "PurePythonGPR": GPRModel,
         "sklearnGPRModel": GPRModel,
         "GPyTorchGPRModel": GPRModel,
@@ -37,6 +44,6 @@ def get_model(name):
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"model: {name} is not ported to gpsat_tpu_torch yet; it comes "
-            "with slice 7 of the port (the other model families)")
+            "with slice 7b of the port (KISS-GP and the multioutput models)")
     raise NotImplementedError(
         f"model: {name} is not implemented; available: {sorted(registry)}")

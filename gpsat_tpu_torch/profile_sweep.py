@@ -1,12 +1,16 @@
 """Where the time of a sweep goes on a CUDA device.
 
-    python -m gpsat_tpu_torch.profile_sweep [gpr|sgpr] [--experts E]
-                                            [--out FILE]
+    python -m gpsat_tpu_torch.profile_sweep [gpr|sgpr|svgp|vff]
+                                            [--experts E] [--out FILE]
 
 `gpr` (the default) runs BatchedGPR.fit_predict_many on the bench `gpr`
 workload (E=512, N=400, P=400, D=3, Matern32, f32); `sgpr` runs
 BatchedSGPR.fit_predict_many on the bench `sgpr` workload (E=128, N=2000,
-P=400, D=3, M=500, 48 slots), once per route ("hybrid", "stream", "mega").
+P=400, D=3, M=500, 48 slots), once per route ("hybrid", "stream", "mega");
+`svgp` runs BatchedSVGP on the bench `svgp` workload (E=128, N=1000, P=400,
+D=3, M=128, one chunk of 128); `vff` runs BatchedVFF (m=10) and then
+BatchedASVGP (m=19, the same 361 features) on the bench `vff` workload
+(E=128, N=1000, P=400, D=2, 76 slots).
 Each sweep runs three times: a cold run (first use of every kernel), a warm
 run timed on the host clock, and a warm run under torch.profiler. Prints one
 JSON object
@@ -29,7 +33,9 @@ import torch
 
 from gpsat_tpu_torch.device_profile import (base_name, by_gv_group,
                                            device_times)
-from gpsat_tpu_torch.models.batched import BatchedGPR, BatchedSGPR
+from gpsat_tpu_torch.models.batched import (BatchedASVGP, BatchedGPR,
+                                            BatchedSGPR, BatchedSVGP,
+                                            BatchedVFF)
 from gpsat_tpu_torch.ops import cuda_gpr, cuda_sgpr
 from gpsat_tpu_torch.parallel.scheduler import auto_batch_size
 
@@ -38,11 +44,13 @@ def workload(E, N, P, D=3, seed=0):
     """bench.make_workload's recipe, de-meaned."""
     rng = np.random.default_rng(seed)
     X = rng.uniform(-4.0, 4.0, (E, N, D))
-    X[..., 2] = 0.0
+    if D > 2:
+        X[..., 2] = 0.0
     z = (0.4 * np.sin(X[..., 0] * 0.8) + 0.3 * np.cos(X[..., 1] * 0.6)
          + 0.05 * rng.standard_normal((E, N)))
     Xs = rng.uniform(-4.0, 4.0, (E, P, D))
-    Xs[..., 2] = 0.0
+    if D > 2:
+        Xs[..., 2] = 0.0
     return X, z - z.mean(axis=1, keepdims=True), np.ones((E, N), bool), Xs
 
 
@@ -69,9 +77,37 @@ def bench_sgpr_engine(D=3, M=500, **kw):
 def sgpr_slots(E, N, M):
     """Pool width of the bench `sgpr` mode (bench.py:536-538): a budget of
     3 * 2**24 elements for the dominant [B, M, N] buffers, rounded down to a
-    multiple of 16 (48 at N=2000, M=500)."""
+    multiple of 16 (48 at N=2000, M=500). The bench `svgp` mode takes the
+    same rule (bench.py:525-530): 128 at N=1000, M=128, one chunk of the
+    bench's 128 experts."""
     B = min(E, max(1, (3 * 2**24) // (M * N)))
     return B - B % 16 if B >= 16 else B
+
+
+def vff_slots(E, N, m, D):
+    """Pool width of the bench `vff` mode (bench.py:539-541): a budget of
+    2**25 elements for [B, M, N] with M reckoned as (2m + 1)**D (441 at m=10,
+    D=2, where the model has (2m - 1)**D = 361 features): 76 at N=1000."""
+    return min(E, max(1, 2**25 // max((2 * m + 1) ** D * N, 1)))
+
+
+def bench_svgp_engine(D=3, M=128, **kw):
+    """BatchedSVGP with the bench `svgp` configuration (bench.py:485-487,
+    :509-511): Adam lr 5e-2, at most 1000 steps, M seeded inducing points."""
+    common = _bench_common(D)
+    common["optim_kwargs"] = {"max_iter": 1000, "learning_rate": 5e-2}
+    return BatchedSVGP(num_inducing_points=M, **common, **kw)
+
+
+def bench_vff_engine(D=2, m=10, engine=None, **kw):
+    """BatchedVFF with the bench `vff` configuration (bench.py:488-490,
+    :512-514): m features per dimension, lengthscales bounded below by 0.05.
+    `engine=BatchedASVGP` gives the ASVGP engine on the same configuration
+    (m then counts B-splines per dimension)."""
+    common = _bench_common(D)
+    common["constraints"]["lengthscales"]["low"] = [0.05] * D
+    return (engine or BatchedVFF)(num_inducing_features=[m] * D, **common,
+                                  **kw)
 
 
 # The CUDA kernels of each port kernel (a launch entry may enqueue several),
@@ -125,7 +161,7 @@ def profile(engine, E, N, P, D, slots):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    pool_iters = engine._last_pool_iterations
+    pool_iters = getattr(engine, "_last_pool_iterations", 0)
     return {
         "card": smi, "model": engine.model_name,
         "route": getattr(engine, "route", None),
@@ -139,7 +175,7 @@ def profile(engine, E, N, P, D, slots):
         "device_busy_share": busy_us * 1e-6 / profiled if busy_us
         else "not measured",
         "host_ms_per_pool_iter": 1e3 * (profiled - busy_us * 1e-6)
-        / max(pool_iters, 1) if busy_us else "not measured",
+        / pool_iters if busy_us and pool_iters else "not measured",
         "cuda_kernel_launches": sum(c for _, c in kernels.values()),
         "top_kernels_ms": {k[:80]: {"ms": us * 1e-3, "calls": c}
                            for k, (us, c) in top},
@@ -150,7 +186,8 @@ def profile(engine, E, N, P, D, slots):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", nargs="?", default="gpr", choices=("gpr", "sgpr"))
+    ap.add_argument("mode", nargs="?", default="gpr",
+                    choices=("gpr", "sgpr", "svgp", "vff"))
     ap.add_argument("--experts", type=int, default=None)
     ap.add_argument("--out", default=None,
                     help="also write the JSON objects to this file")
@@ -165,11 +202,22 @@ def main():
         engine = bench_gpr_engine(D)
         slots = min(E, auto_batch_size(N, P, device=engine.device))
         results.append(profile(engine, E, N, P, D, slots))
-    else:
+    elif args.mode == "sgpr":
         E, N, P, D, M = args.experts or 128, 2000, 400, 3, 500
         for route in cuda_sgpr.ROUTES:
             results.append(profile(bench_sgpr_engine(D, M, route=route), E, N,
                                    P, D, sgpr_slots(E, N, M)))
+    elif args.mode == "svgp":
+        E, N, P, D, M = args.experts or 128, 1000, 400, 3, 128
+        results.append(profile(bench_svgp_engine(D, M), E, N, P, D,
+                               sgpr_slots(E, N, M)))
+    else:
+        E, N, P, D, m = args.experts or 128, 1000, 400, 2, 10
+        slots = vff_slots(E, N, m, D)
+        results.append(profile(bench_vff_engine(D, m), E, N, P, D, slots))
+        results.append(profile(bench_vff_engine(D, 2 * m - 1,
+                                                engine=BatchedASVGP),
+                               E, N, P, D, slots))
     text = "\n".join(json.dumps(r) for r in results)
     print(text)
     if args.out:

@@ -13,7 +13,8 @@ from gpsat_tpu_torch import default_dtype, resolve_device
 from gpsat_tpu_torch.ops.lbfgs import Carry
 
 __all__ = ["params_from_jax", "inducing_from_jax", "unconstrained_from_jax",
-           "carry_from_jax", "model_state_from_jax"]
+           "carry_from_jax", "model_state_from_jax", "svgp_state_from_jax",
+           "vff_domains_from_jax"]
 
 
 def _tensor(a, dtype, device):
@@ -33,6 +34,22 @@ def inducing_from_jax(Z_np, zmask_np, dtype=None, device=None):
     (Z tensor, bool mask tensor), so both engines work from the same Z."""
     return (_tensor(Z_np, dtype, device),
             _tensor(np.asarray(zmask_np).astype(bool), torch.bool, device))
+
+
+def svgp_state_from_jax(q_mu, q_sqrt_raw, Z, zmask, dtype=None, device=None):
+    """The variational state of BatchedSVGP (its `params["inducing_mean"]`
+    [E, M], `params["inducing_chol"]` [E, M, M], `params["inducing_points"]`
+    [E, M, d] and `inducing_mask` [E, M]) -> (q_mu, q_sqrt_raw, Z, bool mask)
+    tensors, the arguments of ops/svgp's functions."""
+    return (_tensor(q_mu, dtype, device), _tensor(q_sqrt_raw, dtype, device),
+            *inducing_from_jax(Z, zmask, dtype, device))
+
+
+def vff_domains_from_jax(a, b, dtype=None, device=None):
+    """Per-expert boxes [E, d] of BatchedVFF / BatchedASVGP (`engine._a`,
+    `engine._b`) -> (a, b) tensors, the arguments of ops/vff's and
+    ops/asvgp's functions."""
+    return _tensor(a, dtype, device), _tensor(b, dtype, device)
 
 
 def unconstrained_from_jax(u_np, dtype=None, device=None):

@@ -289,9 +289,15 @@ def test_get_model_names_and_aliases(name, cls):
 @pytest.mark.parametrize("name", ["SVGPModel", "GPflowVFFModel", "ASVGPModel",
                                   "KISSGPModel", "MultioutputGPRModel"])
 def test_get_model_names_the_slice_of_an_unported_family(name):
-    jax_get_model(name)                       # the JAX package has it
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        get_model(name)
+    """A family still to port raises, naming its slice (7b: KISS-GP and the
+    multioutput models); the families of slice 7a (SVGP, VFF, ASVGP)
+    resolve to the port's class of the JAX package's name."""
+    want = jax_get_model(name).__name__       # the JAX package has it
+    if want in ("SVGPModel", "VFFModel", "ASVGPModel"):
+        assert get_model(name).__name__ == want
+    else:
+        with pytest.raises(NotImplementedError, match="slice 7b"):
+            get_model(name)
     with pytest.raises(NotImplementedError, match="available"):
         get_model("NoSuchModel")
 

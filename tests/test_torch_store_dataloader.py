@@ -444,7 +444,7 @@ def test_execute_buckets_equals_fit_predict_many_per_bucket():
         [b["n_max"] for b in buckets]
     for bk, ids in zip(buckets, calls):
         np.testing.assert_array_equal(bk["indices"], ids)
-        X, y, mask, Xs, f_bar, _ = assemble_bucket(
+        X, y, mask, Xs, f_bar, _, _ = assemble_bucket(
             bk, X_list, obs_list, pred_list,
             np.atleast_2d(kw["coords_scale"]), np.atleast_2d(kw["obs_scale"]),
             kw["obs_mean"])
@@ -569,6 +569,26 @@ GUARD = textwrap.dedent("""
     assert np.isfinite(out["objective"]).all()
     for i, p in enumerate(ps):
         assert np.isfinite(out["preds"]["f*"][i, :p]).all()
+    # the other model families, through the same function
+    import importlib
+    for m in ("ops.svgp", "ops.vff", "ops.asvgp", "models.svgp",
+              "models.vff", "models.asvgp"):
+        importlib.import_module("gpsat_tpu_torch." + m)
+    from gpsat_tpu_torch.models import get_model
+    locs = np.array([x.mean(axis=0) for x in X])
+    for name, init in (("SVGPModel", {"num_inducing_points": 4}),
+                       ("VFFModel", {"num_inducing_features": 4,
+                                     "domain_size": 12.0}),
+                       ("ASVGPModel", {"num_inducing_features": 5,
+                                       "domain_size": 12.0})):
+        eng = le.make_engine(get_model(name),
+                             dict(init, coords_scale=[2.0, 2.0]),
+                             coords_dim=2, optim_kwargs={"max_iter": 20},
+                             device="cpu")
+        o = le.execute_buckets(eng, X, obs, pred, coords_scale=[2.0, 2.0],
+                               obs_mean="local", expert_locs=locs)
+        assert np.isfinite(o["objective"]).all(), name
+        print("family", name, len(o["buckets"]))
     loaded = sorted(m for m, v in sys.modules.items() if v is not None and (
         m.split(".")[0] in ("pandas", "h5py", "jax", "jaxlib")
         or m == "gpsat_tpu" or m.startswith("gpsat_tpu.")))
@@ -580,13 +600,16 @@ GUARD = textwrap.dedent("""
 def test_execute_buckets_runs_without_pandas_h5py_or_jax():
     """The card's machine has no pandas and no h5py, and the port uses no
     jax: importing gpsat_tpu_torch.local_experts and running execute_buckets
-    (CPU, f64) must work with the three blocked, and load no module of the
-    JAX package."""
+    (CPU, f64; GPRModel, then SVGPModel, VFFModel and ASVGPModel, whose
+    modules are imported too) must work with the three blocked, and load no
+    module of the JAX package."""
     env = {**os.environ, "PYTHONPATH": REPO}
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "buckets 3 experts 4" in res.stdout
+    for name in ("SVGPModel", "VFFModel", "ASVGPModel"):
+        assert f"family {name} 3" in res.stdout
 
 
 HOST_GUARD = textwrap.dedent("""

@@ -11,7 +11,9 @@ to 512, and cholinv at the fill's 128 as well; cholinv_vg: cholinv alone on
 vg's 345 kernel matrices, N=400 padded to 448; cholinv_factor: the
 exact-GPR factor alone, with no W = U^{-1} and no border, on 512 kernel
 matrices rebuilt from the coordinates (gp_cholinv_kernel_launch, where the
-checkout has it); Matern32, D=3, fixed random hyperparameters), by CUDA
+checkout has it), and cholinv_factor_library: torch.linalg.cholesky_ex on
+the same 512 matrices padded to 448; Matern32, D=3, fixed random
+hyperparameters), by CUDA
 events over 20 warm launches. sgpr_vg_mega runs at 48 and 128 experts;
 beside each, `gv` holds the device time of route mega's own kernels
 (csrc/gp_sgpr_vg.cu's gv_*) in one call, by torch.profiler: the four P6
@@ -152,6 +154,11 @@ def main():
                 out["cholinv_factor"] = cuda_ms(factor_alone(
                     _build.load_library(), xt, p,
                     cuda_gpr._KERNEL_IDS[kernel], D))
+            xt64 = torch.zeros(E, 8, 448, device="cuda")
+            xt64[:, :, :xt.shape[2]] = xt
+            A = cuda_gpr._masked_matrix(xt64, p, kernel, D)[0].contiguous()
+            out["cholinv_factor_library"] = cuda_ms(
+                lambda: torch.linalg.cholesky_ex(A))
         else:
             out[name] = cuda_ms(
                 lambda: cuda_gpr._predict_launch(xt, yt, p, xs, kernel, D))
