@@ -58,7 +58,16 @@ Phases (any failure exits non-zero; nothing is caught):
      on phase 6's 96 SGPR experts (VFF and ASVGP in boxes about the expert
      locations), each against f64, converged (VFF, ASVGP) and RMSE against
      the truth field; then one expert of each per-expert model on the card
-     against its f64 CPU run.
+     against its f64 CPU run;
+  9. KISS-GP and the multioutput models, which run no kernel of the port
+     either: KISSGPModel dense on phase 6's largest expert (x, y, t, the
+     automatic grid) and structured on the 20 000 raw along-track points
+     nearest the centre expert (x, y; grid 141^2, 30 Adam steps, predictions
+     at 400 points), MultioutputGPRModel and MultioutputSVGPModel (linear
+     and nonlinear) on a two-instrument fusion of the largest expert, each
+     against f64 at the card's state (the fits also against f64 fits on the
+     card from the same start, the structured one with the same probes);
+     make_engine's engine for each new name.
 The line before the last is a JSON object with one entry per kernel (its
 launches in phases 3-4, in phase 6's GPR and SGPR runs and in phase 7); the
 last line is {"ok": true, "device": {...}}. Imports nothing of JAX or
@@ -1001,10 +1010,10 @@ def truth_field(x, y):
             + 0.08 * np.sin((x + 0.5 * y) / (500 * KM)) + 0.15)
 
 
-def arctic_observations(seed=0, cfg=ARCTIC):
+def arctic_tracks(seed=0, cfg=ARCTIC):
     """Along-track chords as examples/generate_example_data.make_tracks draws
-    them (one random day each, noise 0.05 on the field), binned to a 50 km
-    grid per day: (x, y, t, z) of the non-empty cells, sorted by day."""
+    them (one random day each, noise 0.05 on the field), before binning:
+    the (x, y, t, z) of every along-track point."""
     rng = np.random.default_rng(seed)
     dom = cfg["domain"]
     s = np.linspace(-dom, dom, int(2 * dom / cfg["spacing"]))
@@ -1020,6 +1029,14 @@ def arctic_observations(seed=0, cfg=ARCTIC):
         ts.append(np.full(int(keep.sum()), rng.integers(0, cfg["days"])))
     x, y, t = (np.concatenate(a) for a in (xs, ys, ts))
     z = truth_field(x, y) + cfg["noise"] * rng.standard_normal(len(x))
+    return x, y, t, z
+
+
+def arctic_observations(seed=0, cfg=ARCTIC):
+    """arctic_tracks' points binned to a 50 km grid per day: (x, y, t, z) of
+    the non-empty cells, sorted by day."""
+    x, y, t, z = arctic_tracks(seed, cfg)
+    dom = cfg["domain"]
     g = cfg["grid"]
     ng = int(round(2 * dom / g))
     ix = np.clip(np.floor((x + dom) / g).astype(int), 0, ng - 1)
@@ -1134,7 +1151,7 @@ def hold_preds(name, got, want, valid, tol=PRED_TOL):
         g, w = got[k][valid], want[k][valid]
         e = np.abs(g - w)
         print(f"  {name} {k}: max_abs_err {e.max():.3e}, max rel err "
-              f"{np.max(e / np.abs(w)):.3e}, median |{k}| "
+              f"{np.max(e / np.maximum(np.abs(w), 1e-300)):.3e}, median |{k}| "
               f"{np.median(np.abs(w)):.3e} (rtol {rtol}, atol {atol})")
         bad = int(np.sum(~(e <= atol + rtol * np.abs(w))))
         require(bad == 0, f"{name} {k}: {bad} of {e.size} values beyond "
@@ -1896,6 +1913,443 @@ def phase_families(inp):
           f"models {t3 - t2:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# KISS-GP and the multioutput models
+# ---------------------------------------------------------------------------
+
+# The structured KISS run: the N raw along-track points (all nine days,
+# before binning) nearest the centre expert, on (x, y) in units of 100 km;
+# the automatic grid (141 a side at N=20 000) makes N G^2 = 4e8 > 2**24, so
+# the model picks structured mode itself; 30 Adam steps with 8 Hutchinson
+# probes; P predictions on a 20 x 20 grid within +-190 km of the expert.
+KISS_STRUCT = dict(N=20000, P=400, iterations=30, n_probes=8, subset=2000,
+                   half=190 * KM)
+# The two-instrument fusion on the largest expert: the phase-6 truth plus
+# independent noise per instrument, L = Q = 2, instrument 2 seeing f1 + f2;
+# MultioutputSVGPModel with M inducing points, its nonlinear form with S
+# Monte-Carlo samples for at most `steps` Adam steps.
+FUSION = dict(noise=(0.05, 0.1), H=((1.0, 0.0), (1.0, 1.0)), M=128, S=100,
+              steps=300)
+# Phase 9's limits, f32 on the card against f64: about four times the
+# largest measured on the H100 (in brackets). "objective": relative;
+# prediction keys: (rtol, atol); "params": {name: relative}. At one state
+# (the f64 evaluation at the card's parameters): objectives rel (KISS dense
+# 9.3e-8, MultioutputGPR 7.8e-7, MultioutputSVGP 1.3e-6 linear, 2.4e-7
+# nonlinear), predictions within PRED_TOL / MO_PRED. Two fits from one
+# start: KISS dense (f64, on the CPU and on the card alike) objective 2.6e-5, f* 1.9e-5, f*_var 7.8e-8,
+# y_var 7.1e-8, lengthscales 2.5e-3, kernel variance 1.3e-2; KISS
+# structured (f64 on the card, the same probes) objective 4.6e-4, f*
+# 3.0e-5, f*_var 2.3e-7, y_var 3.3e-6, lengthscales 2.6e-3, kernel variance
+# 3.8e-3, noise 1.2e-3; MultioutputGPR (f64 on the card) objective 6.1e-4.
+PHASE9_TOL = {
+    "KISS dense": {"objective": 4e-7},
+    "KISS dense fits": {
+        "objective": 1e-4, "f*": (1e-3, 1e-4), "f*_var": (1e-2, 3e-7),
+        "y_var": (1e-3, 3e-7),
+        "params": {"lengthscales": 1e-2, "kernel_variance": 6e-2,
+                   "likelihood_variance": 1e-3}},
+    "KISS structured predict": PRED_TOL,
+    "KISS structured fits": {
+        "objective": 2e-3, "f*": (1e-3, 1.2e-4), "f*_var": (1e-2, 1e-6),
+        "y_var": (1e-3, 1.3e-5),
+        "params": {"lengthscales": 1e-2, "kernel_variance": 1.6e-2,
+                   "likelihood_variance": 5e-3}},
+    "KISS structured matvec": 1e-10,
+    "MultioutputGPR": {"objective": 3e-6},
+    "MultioutputGPR fits": {"objective": 2.5e-3},
+    "MultioutputSVGP linear": {"objective": 5e-6},
+    "MultioutputSVGP nonlinear": {"objective": 1e-6}}
+MO_PRED = {"f*": (1e-3, 1e-4), "f*_var": (1e-3, 1e-6), "y*": (1e-3, 1e-4),
+           "y_var": (1e-3, 1e-6)}
+
+
+def fusion_h(X, F):
+    """The nonlinear forward model of the fusion: instrument 1 sees f1,
+    instrument 2 sees f1 + f2 + f2^3 / 3."""
+    return torch.stack([F[..., 0],
+                        F[..., 0] + F[..., 1] + F[..., 1] ** 3 / 3], -1)
+
+
+def largest_expert(inp):
+    """(X, z, prediction points) of the expert with the most observations
+    (phase 6's largest level), in raw units."""
+    i = int(np.argmax([len(o) for o in inp["obs_list"]]))
+    return inp["X_list"][i], inp["obs_list"][i], inp["pred_list"][i]
+
+
+def scaled_constraints(d):
+    """ARCTIC_MODEL's constraints for the first d coordinates, lengthscale
+    bounds in raw units (as make_engine marks them under coords_scale)."""
+    c = ARCTIC_MODEL["constraints"]
+    return {"lengthscales": {"low": c["lengthscales"]["low"][:d],
+                             "high": c["lengthscales"]["high"][:d],
+                             "scale": True},
+            "likelihood_variance": dict(c["likelihood_variance"])}
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def fit_twice(make, fit, card, ref):
+    """The same model fitted from the same start on `card` and on `ref`,
+    each a (device, dtype or None for the device's default) pair:
+    ((model, success, wall s), (model, success, wall s))."""
+    out = []
+    for device, dtype in (card, ref):
+        model = make(device, dtype)
+        sync(device)
+        t0 = time.perf_counter()
+        ok = fit(model)
+        sync(device)
+        out.append((model, ok, time.perf_counter() - t0))
+    return out
+
+
+def at_params(make, model):
+    """An f64 CPU model of `make` at `model`'s parameters."""
+    ev = make("cpu", torch.float64)
+    ev.set_parameters(**model.get_parameters())
+    return ev
+
+
+def hold_fits(name, m32, m64, Xs, keys, tol):
+    """Two fits from one start, f32 on the card and f64: their objectives
+    and predictions at `tol` ({"objective": rtol, key: (rtol, atol)}) and,
+    where `tol["params"]` names a limit, their parameters; the parameters
+    are printed either way."""
+    pa, pb = m32.get_parameters(), m64.get_parameters()
+    for k in pa:
+        print(f"  {name} {k}: f32 fit {np.round(np.ravel(pa[k]), 6).tolist()}"
+              f", f64 fit {np.round(np.ravel(pb[k]), 6).tolist()}")
+    hold_rel(name, {"objective": m32.get_objective_function_value()},
+             {"objective": m64.get_objective_function_value()},
+             {"objective": tol["objective"]})
+    if keys:
+        g, w = m32.predict(Xs), m64.predict(Xs)
+        hold_preds(name, {k: g[k][None] for k in keys},
+                   {k: w[k][None] for k in keys},
+                   np.ones((1,) + g["f*"].shape, bool),
+                   {k: tol[k] for k in keys})
+    hold_rel(name, pa, pb, tol.get("params", {}))
+
+
+def hold_rel(name, got, want, limits):
+    """Each {name: value} of `got` within its relative limit of `want`."""
+    for k, lim in limits.items():
+        rel = float(np.max(np.abs(np.asarray(got[k]) - np.asarray(want[k]))
+                           / np.abs(np.asarray(want[k]))))
+        print(f"  {name} {k}: rel err {rel:.3e} (limit {lim})")
+        require(rel <= lim, f"{name} {k}: rel err {rel} beyond {lim}")
+
+
+def hold_at_params(name, model, make, Xs, keys):
+    """The card model's objective and predictions against the f64 CPU
+    evaluation at its parameters (`keys`: {key: (rtol, atol)})."""
+    ev = at_params(make, model)
+    obj, obj64 = (m.get_objective_function_value() for m in (model, ev))
+    g, w = model.predict(Xs), ev.predict(Xs)
+    print(f"  {name}: objective {obj:.6f}, f64 at its parameters "
+          f"{obj64:.6f}")
+    hold_rel(name, {"objective": obj}, {"objective": obj64},
+             {"objective": PHASE9_TOL[name]["objective"]})
+    for k in keys:
+        require(g[k].shape == w[k].shape and np.isfinite(g[k]).all(),
+                f"{name} {k}: shape {g[k].shape} or non-finite")
+    hold_preds(name, {k: g[k][None] for k in keys},
+               {k: w[k][None] for k in keys},
+               np.ones((1,) + g["f*"].shape, bool), keys)
+
+
+def phase_kiss_dense(inp, dev="cuda"):
+    """KISSGPModel on the largest expert of phase 6 (x, y, t, ARCTIC_MODEL's
+    scale and constraints), the automatic grid (dense), fitted by L-BFGS on
+    the card in f32 and, from the same start, in f64 on the card: on the
+    CPU the f64 fit took 7-9 s, cut to keep the script near its budget."""
+    from gpsat_tpu_torch.models.kiss_gpr import KISSGPModel
+    X, z, Xs = largest_expert(inp)
+    scale = ARCTIC_MODEL["init_params"]["coords_scale"]
+
+    def make(device, dtype):
+        m = KISSGPModel(coords=X, obs=z, coords_scale=scale,
+                        kernel="Matern32", device=device, dtype=dtype)
+        m.set_parameter_constraints(scaled_constraints(3))
+        return m
+    (m32, ok, wall), (m64, ok64, wall64) = fit_twice(
+        make, lambda m: m.optimise_parameters(), (dev, None),
+        (dev, torch.float64))
+    require(not m32.structured and m32.grid_size == m64.grid_size,
+            f"KISS dense: structured {m32.structured}, grid {m32.grid_size}")
+    print(f"KISS dense N={len(z)} P={len(Xs)} grid {m32.grid_size}^3 on "
+          f"{m32.device} {m32.dtype}: fit {wall:.3f} s success={ok}; "
+          f"{m64.dtype} fit {wall64:.3f} s success={ok64}")
+    hold_at_params("KISS dense", m32, make, Xs, PRED_TOL)
+    hold_fits("KISS dense fits", m32, m64, Xs, PRED_KEYS,
+              PHASE9_TOL["KISS dense fits"])
+
+
+class counting_cg:
+    """Counts the CG iterations (matvecs) that ops/ski_structured runs while
+    the context is open: it wraps the module's cg_solve, which its fit and
+    predict call by name, and restores it on exit."""
+
+    def __enter__(self):
+        from gpsat_tpu_torch.ops import ski_structured as skis
+        self.module, self.orig, self.calls = skis, skis.cg_solve, []
+
+        def cg(matvec, B, **kw):
+            n = [0]
+
+            def mv(v):
+                n[0] += 1
+                return matvec(v)
+            x = self.orig(mv, B, **kw)
+            self.calls.append((B.shape[0], n[0]))
+            return x
+        skis.cg_solve = cg
+        return self
+
+    def __exit__(self, *exc):
+        self.module.cg_solve = self.orig
+        return False
+
+
+def kiss_struct_data(cfg=KISS_STRUCT):
+    """The N raw track points nearest the centre expert on (x, y), their
+    radius, and the P prediction points."""
+    x, y, _, z = arctic_tracks()
+    r2 = x ** 2 + y ** 2
+    near = np.argsort(r2, kind="stable")[:cfg["N"]]
+    side = int(round(np.sqrt(cfg["P"])))
+    g = np.linspace(-cfg["half"], cfg["half"], side)
+    gx, gy = np.meshgrid(g, g, indexing="ij")
+    return (np.stack([x[near], y[near]], 1), z[near],
+            float(np.sqrt(r2[near[-1]])),
+            np.stack([gx.ravel(), gy.ravel()], 1))
+
+
+def phase_kiss_structured(dev="cuda", cfg=KISS_STRUCT):
+    """KISSGPModel on N along-track points, structured by its own choice:
+    Adam in f32 on the card, predict at P points; ski_matvec against the
+    dense W Kg W^T v + s2 v on a random subset in f64; the f32 predictions
+    against the same call in f64 at the same parameters; the fit against an
+    f64 fit on the card with the same probes."""
+    from gpsat_tpu_torch.models.kiss_gpr import KISSGPModel
+    from gpsat_tpu_torch.ops import ski
+    from gpsat_tpu_torch.ops import ski_structured as skis
+    from gpsat_tpu_torch.ops.kernels import kernel_fn
+    X, z, radius, Xs = kiss_struct_data(cfg)
+
+    def make(device, dtype):
+        m = KISSGPModel(coords=X, obs=z, coords_scale=[1e5, 1e5],
+                        kernel="Matern32", device=device, dtype=dtype)
+        m.set_parameter_constraints(scaled_constraints(2))
+        return m
+    m32 = make(dev, None)
+    N, G = len(z), m32.grid_size
+    require(m32.structured and N * G ** 2 > 2 ** 24,
+            f"KISS structured: N {N}, grid {G}, structured {m32.structured}")
+    probes = skis.draw_probes(cfg["n_probes"], N, 0, m32.dtype, m32.device)
+    if m32.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with counting_cg() as cg_fit:
+        sync(dev)
+        t0 = time.perf_counter()
+        ok = m32.optimise_parameters(iterations=cfg["iterations"],
+                                     probes=probes)
+        sync(dev)
+        fit_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if m32.device.type == "cuda" else float("nan")
+    with counting_cg() as cg_pred:
+        t0 = time.perf_counter()
+        preds = m32.predict(Xs)
+        sync(dev)
+        pred_wall = time.perf_counter() - t0
+    its = [n for _, n in cg_fit.calls]
+    print(f"KISS structured N={N} (radius {radius / KM:.1f} km, all "
+          f"{ARCTIC['days']} days) grid {G}^2 on {m32.device} {m32.dtype}: "
+          f"fit {fit_wall:.3f} s ({cfg['iterations']} Adam steps, "
+          f"{cfg['n_probes']} probes, success={ok}), CG iterations a step "
+          f"(first, median, last, max; to the next multiple of "
+          f"{skis.CG_CHECK_EVERY}) {its[0]}, {int(np.median(its))}, "
+          f"{its[-1]}, {max(its)}, in all {sum(its)}; predict P={len(Xs)} "
+          f"{pred_wall:.3f} s, CG (rhs, iterations) {cg_pred.calls}; peak "
+          f"{peak:.2f} GiB")
+    for k in PRED_TOL:
+        require(preds[k].shape == (len(Xs),) and np.isfinite(preds[k]).all(),
+                f"KISS structured {k}: shape or non-finite")
+
+    # the same predict call in f64 at the f32 fit's parameters, on the card
+    ev = make(dev, torch.float64)
+    ev.set_parameters(**m32.get_parameters())
+    ref = ev.predict(Xs)
+    hold_preds("KISS structured predict f32 vs f64",
+               {k: preds[k][None] for k in PRED_TOL},
+               {k: ref[k][None] for k in PRED_TOL},
+               np.ones((1, len(Xs)), bool),
+               PHASE9_TOL["KISS structured predict"])
+
+    # an f64 fit from the same start with the same probes, on the card
+    m64 = make(dev, torch.float64)
+    sync(dev)
+    t0 = time.perf_counter()
+    m64.optimise_parameters(iterations=cfg["iterations"],
+                            probes=probes.to(torch.float64))
+    sync(dev)
+    print(f"  KISS structured f64 fit on {m64.device}: "
+          f"{time.perf_counter() - t0:.3f} s")
+    hold_fits("KISS structured fits", m32, m64, Xs, PRED_KEYS,
+              PHASE9_TOL["KISS structured fits"])
+
+    # ski_matvec against the dense product on a random subset, f64
+    rng = np.random.default_rng(5)
+    sub = np.sort(rng.choice(N, cfg["subset"], replace=False))
+    Xsub = ev.coords[sub]
+    params = ev._param_dict()
+    sp = skis.SparseInterp(Xsub, ev._starts, ev._steps, G,
+                           dtype=torch.float64, device=ev.device)
+    v = torch.as_tensor(rng.standard_normal(len(sub)), device=ev.device)
+    got = skis.ski_matvec(params, sp, ev._steps, G, "Matern32", 2, v)
+    st, sp_ = ev._tensor(ev._starts), ev._tensor(ev._steps)
+    W = ski.interp_matrix(ev._tensor(Xsub), st, sp_, G)
+    Zg = ski.grid_points(st, sp_, G, 2)
+    Kg = kernel_fn("Matern32")(Zg, Zg, params["lengthscales"],
+                               params["kernel_variance"])
+    want = W @ (Kg @ (W.mT @ v)) + params["likelihood_variance"] * v
+    del Kg
+    lim = PHASE9_TOL["KISS structured matvec"]
+    rel = float(torch.max(torch.abs(got - want)) / torch.max(torch.abs(want)))
+    print(f"  KISS structured ski_matvec vs dense on {len(sub)} rows, f64: "
+          f"max err {rel:.3e} of max |Kv| (limit {lim})")
+    require(rel <= lim, f"ski_matvec off dense by {rel}")
+
+
+def fusion_kwargs(inp):
+    """The prediction points and the model arguments of the two-instrument
+    fusion on the largest expert: each column the truth plus its own
+    instrument's noise, R diagonal."""
+    X, _, Xs = largest_expert(inp)
+    rng = np.random.default_rng(9)
+    truth = truth_field(X[:, 0], X[:, 1])
+    Y = np.stack([truth + s * rng.standard_normal(len(X))
+                  for s in FUSION["noise"]], 1)
+    return Xs, dict(coords=X, obs=Y, coords_scale=ARCTIC_MODEL[
+        "init_params"]["coords_scale"], num_latent_gps=2,
+        R=np.diag(np.square(FUSION["noise"])))
+
+
+def phase_mogpr(inp, dev="cuda"):
+    """MultioutputGPRModel, the two-instrument fusion (observation covariance
+    [2N, 2N]), L-BFGS on the card in f32, and from the same start in f64 on
+    the card (on the CPU it would take minutes); the card's log marginal
+    likelihood, latent f and predict_y's diagonals against f64 at its
+    parameters."""
+    from gpsat_tpu_torch.models.multioutput import MultioutputGPRModel
+    Xs, kw = fusion_kwargs(inp)
+
+    def make(device, dtype):
+        return MultioutputGPRModel(device=device, dtype=dtype,
+                                   H=np.array(FUSION["H"]), **kw)
+    (m32, ok, wall), (m64, ok64, wall64) = fit_twice(
+        make, lambda m: m.optimise_parameters(), (dev, None),
+        (dev, torch.float64))
+    N = len(kw["obs"])
+    print(f"MultioutputGPRModel N={N} P=2 (covariance [{2 * N}, {2 * N}]) "
+          f"on {m32.device} {m32.dtype}: fit {wall:.3f} s success={ok}; "
+          f"{m64.dtype} fit {wall64:.3f} s success={ok64}")
+    hold_at_params("MultioutputGPR", m32, make, Xs, MO_PRED)
+    # the fusion's second latent is not identifiable (both instruments see
+    # the one truth, so f2 = 0 and its parameters are free) and the first
+    # latent's lengthscales run flat beyond the expert's extent: the two fits
+    # stop at different points of a flat valley, so only their objectives
+    # are held; their predictions' distance is printed
+    hold_fits("MultioutputGPR fits", m32, m64, Xs, (),
+              PHASE9_TOL["MultioutputGPR fits"])
+    g, w = m32.predict(Xs), m64.predict(Xs)
+    print("  MultioutputGPR fits: f32 fit against the f64 fit, max abs "
+          + ", ".join(f"{k} {np.max(np.abs(g[k] - w[k])):.3e}"
+                      for k in ("f*", "f*_var", "y*", "y_var")))
+
+
+def phase_mosvgp(inp, dev="cuda"):
+    """MultioutputSVGPModel on the fusion data with M inducing points: the
+    linear H by Adam at the model's defaults (plateau stop), then the
+    nonlinear forward model with S Monte-Carlo samples for at most `steps`
+    steps; each card state's ELBO (the nonlinear one with one fixed eps)
+    and predictions against the f64 evaluation of the same state."""
+    from gpsat_tpu_torch.models.multioutput import MultioutputSVGPModel
+    Xs, kw = fusion_kwargs(inp)
+    kw["num_inducing_points"] = FUSION["M"]
+    for name, extra, opt in (
+            ("linear", {"H": np.array(FUSION["H"])}, {}),
+            ("nonlinear", {"forward_model": fusion_h,
+                           "num_mc_samples": FUSION["S"]},
+             {"max_iter": FUSION["steps"]})):
+        def make(device, dtype):
+            return MultioutputSVGPModel(device=device, dtype=dtype, **extra,
+                                        **kw)
+        m = make(dev, None)
+        sync(dev)
+        t0 = time.perf_counter()
+        ok = m.optimise_parameters(**opt)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        eps = m.draw_eps() if m.h is not None else None
+        elbo = m.get_objective_function_value(eps=eps)
+        preds = m.predict(Xs)
+        ev = at_params(make, m)
+        elbo64 = ev.get_objective_function_value(
+            eps=None if eps is None else eps.to("cpu", torch.float64))
+        ref = ev.predict(Xs)
+        keys = MO_PRED if m.H is not None else {
+            k: MO_PRED[k] for k in ("f*", "f*_var")}
+        print(f"MultioutputSVGPModel {name} N={len(kw['obs'])} "
+              f"M={FUSION['M']} on {m.device} {m.dtype}: "
+              f"{m._last_opt_steps} steps in {wall:.3f} s (success={ok}); "
+              f"ELBO {elbo:.4f} against f64 {elbo64:.4f}")
+        tag = f"MultioutputSVGP {name}"
+        hold_rel(tag, {"elbo": elbo}, {"elbo": elbo64},
+                 {"elbo": PHASE9_TOL[tag]["objective"]})
+        for k in keys:
+            require(preds[k].shape == ref[k].shape and
+                    np.isfinite(preds[k]).all(), f"{tag} {k}: non-finite")
+        hold_preds(f"{tag} vs f64", {k: preds[k][None] for k in keys},
+                   {k: ref[k][None] for k in keys},
+                   np.ones((1,) + preds["f*"].shape, bool), keys)
+
+
+def check_family_names():
+    """make_engine(get_model(name)) gives the JAX pipeline's engine for the
+    new names, by its name fallback (an assertion, no run)."""
+    from gpsat_tpu_torch.local_experts import make_engine
+    from gpsat_tpu_torch.models import get_model
+    for name, want in (("KISSGPModel", "BatchedGPR"),
+                       ("MultioutputGPRModel", "BatchedGPR"),
+                       ("MultioutputSVGPModel", "BatchedSVGP")):
+        got = type(make_engine(get_model(name), {}, coords_dim=3)).__name__
+        require(got == want, f"{name}: engine {got}, not {want}")
+
+
+def phase_kiss_multioutput(inp):
+    """Phase 9: KISS-GP dense and structured, the two multioutput models,
+    and their engines' names."""
+    t = [time.perf_counter()]
+    phase_kiss_dense(inp)
+    t.append(time.perf_counter())
+    phase_kiss_structured()
+    t.append(time.perf_counter())
+    phase_mogpr(inp)
+    t.append(time.perf_counter())
+    phase_mosvgp(inp)
+    t.append(time.perf_counter())
+    check_family_names()
+    d = np.diff(t)
+    print(f"phase 9: KISS dense {d[0]:.1f} s, structured {d[1]:.1f} s, "
+          f"MultioutputGPR {d[2]:.1f} s, MultioutputSVGP {d[3]:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1943,8 +2397,9 @@ def main():
     smoothed_pipe = phase_smoothed(cuda_gpr, arctic, fitted, rmse_fit)
     cuda_gpr.reset_launch_counts()
     phase_families(arctic)
+    phase_kiss_multioutput(arctic)
     launched = {k: v for k, v in cuda_gpr.launch_counts().items() if v}
-    require(not launched, f"phase 8 launched kernels: {launched}")
+    require(not launched, f"phases 8-9 launched kernels: {launched}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,15 +7,25 @@ jax or any ``gpsat_tpu`` module, and keeps its own copies of what it needs.
 
 Layout
 ------
-- ``gpsat_tpu_torch.ops``      : masked GP math (kernels, exact GPR, SGPR),
-                                 bijectors, packing, batched L-BFGS, and the
+- ``gpsat_tpu_torch.ops``      : masked GP math (kernels, exact GPR, SGPR,
+                                 SVGP, VFF, ASVGP, dense and structured
+                                 KISS-GP in ``ski.py`` and
+                                 ``ski_structured.py``, multi-output GPR and
+                                 SVGP in ``multioutput.py``), bijectors,
+                                 packing, batched L-BFGS, and the
                                  CUDA kernel wrappers (``ops/cuda_gpr.py``,
                                  ``ops/cuda_cholinv.py``, ``ops/cuda_sgpr.py``;
                                  sources in ``csrc/``).
-- ``gpsat_tpu_torch.models``   : ``BatchedGPR`` and ``BatchedSGPR``, the
-                                 exact-GPR and SGPR sweep engines, and the
-                                 per-expert models ``GPRModel`` /
-                                 ``SGPRModel`` (``models.get_model``).
+- ``gpsat_tpu_torch.models``   : the sweep engines ``BatchedGPR``,
+                                 ``BatchedSGPR``, ``BatchedSVGP``,
+                                 ``BatchedVFF`` and ``BatchedASVGP``, and
+                                 the per-expert models (``models.get_model``):
+                                 ``GPRModel``, ``SGPRModel``, ``SVGPModel``,
+                                 ``VFFModel``, ``ASVGPModel``,
+                                 ``KISSGPModel`` (``models/kiss_gpr.py``),
+                                 ``MultioutputGPRModel`` and
+                                 ``MultioutputSVGPModel``
+                                 (``models/multioutput.py``).
 - ``gpsat_tpu_torch.parallel`` : expert bucketing and batch sizing; the
                                  share-nothing multi-process stripe
                                  (``parallel/multihost.py``).
@@ -66,6 +76,16 @@ def get_path(*sub_dir):
 def get_parent_path(*sub_dir):
     """Path inside the repository root."""
     return os.path.join(_PARENT_DIR, *sub_dir)
+
+
+def get_data_path(*sub_dir):
+    """Path inside <repo>/data."""
+    return os.path.join(_PARENT_DIR, "data", *sub_dir)
+
+
+def get_config_path(*sub_dir):
+    """Path inside <repo>/configs."""
+    return os.path.join(_PARENT_DIR, "configs", *sub_dir)
 
 
 def resolve_device(device=None):

@@ -9,16 +9,14 @@ GPflowSGPRModel -> SGPRModel, and so on.
 from gpsat_tpu_torch.models.base import BaseGPRModel  # noqa: F401
 from gpsat_tpu_torch.models.batched import BatchedGPR  # noqa: F401
 
-# names of gpsat_tpu.models.get_model whose classes come with a later slice of
-# the port (ROADMAP.md, slice 7b: KISS-GP and the multioutput models)
-_NOT_PORTED = ("KISSGPModel", "GPyTorchKISSGPModel", "MultioutputGPRModel",
-               "MultioutputSVGPModel")
-
 
 def get_model(name):
     """Map a model name string to a model class."""
     from gpsat_tpu_torch.models.asvgp import ASVGPModel
     from gpsat_tpu_torch.models.exact_gpr import GPRModel
+    from gpsat_tpu_torch.models.kiss_gpr import KISSGPModel
+    from gpsat_tpu_torch.models.multioutput import (MultioutputGPRModel,
+                                                    MultioutputSVGPModel)
     from gpsat_tpu_torch.models.sgpr import SGPRModel
     from gpsat_tpu_torch.models.svgp import SVGPModel
     from gpsat_tpu_torch.models.vff import VFFModel
@@ -29,6 +27,9 @@ def get_model(name):
         "SVGPModel": SVGPModel,
         "VFFModel": VFFModel,
         "ASVGPModel": ASVGPModel,
+        "KISSGPModel": KISSGPModel,
+        "MultioutputGPRModel": MultioutputGPRModel,
+        "MultioutputSVGPModel": MultioutputSVGPModel,
         # reference-name aliases (config compatibility)
         "GPflowGPRModel": GPRModel,
         "GPflowSGPRModel": SGPRModel,
@@ -38,12 +39,9 @@ def get_model(name):
         "PurePythonGPR": GPRModel,
         "sklearnGPRModel": GPRModel,
         "GPyTorchGPRModel": GPRModel,
+        "GPyTorchKISSGPModel": KISSGPModel,
     }
     if name in registry:
         return registry[name]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model: {name} is not ported to gpsat_tpu_torch yet; it comes "
-            "with slice 7b of the port (KISS-GP and the multioutput models)")
     raise NotImplementedError(
         f"model: {name} is not implemented; available: {sorted(registry)}")

@@ -159,6 +159,17 @@ class BaseGPRModel(ABC):
             return a.to(self.device, dtype)
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
+    def _prediction_coords(self, coords, apply_scale):
+        """Prediction coordinates as a [P, D] float array, scaled by
+        coords_scale when `apply_scale`."""
+        coords = np.asarray(frame_values(coords, self.coords_col),
+                            dtype=float)
+        if coords.ndim == 1:
+            coords = coords[None, :]
+        if apply_scale:
+            coords = coords / self.coords_scale
+        return coords
+
     # -- abstract interface --------------------------------------------------
 
     @abstractmethod

@@ -14,7 +14,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from gpsat_tpu_torch.models.base import BaseGPRModel, frame_values
+from gpsat_tpu_torch.models.base import BaseGPRModel
 from gpsat_tpu_torch.ops import gpr as gpr_math
 from gpsat_tpu_torch.ops.kernels import KERNEL_NAMES, kernel_fn
 from gpsat_tpu_torch.ops.lbfgs import batched_lbfgs
@@ -272,15 +272,6 @@ class GPRModel(BaseGPRModel):
             return self._tensor(a)[None]
         return {n: v.map_tensors(lift) if hasattr(v, "map_tensors")
                 else lift(v) for n, v in tree.items()}
-
-    def _prediction_coords(self, coords, apply_scale):
-        coords = np.asarray(frame_values(coords, self.coords_col),
-                            dtype=float)
-        if coords.ndim == 1:
-            coords = coords[None, :]
-        if apply_scale:
-            coords = coords / self.coords_scale
-        return coords
 
     def _store_optimum(self, opt, names, res):
         """Write the optimised free parameters back and keep the success."""

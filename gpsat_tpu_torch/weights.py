@@ -14,7 +14,8 @@ from gpsat_tpu_torch.ops.lbfgs import Carry
 
 __all__ = ["params_from_jax", "inducing_from_jax", "unconstrained_from_jax",
            "carry_from_jax", "model_state_from_jax", "svgp_state_from_jax",
-           "vff_domains_from_jax"]
+           "vff_domains_from_jax", "kiss_state_from_jax",
+           "multioutput_state_from_jax"]
 
 
 def _tensor(a, dtype, device):
@@ -50,6 +51,31 @@ def vff_domains_from_jax(a, b, dtype=None, device=None):
     `engine._b`) -> (a, b) tensors, the arguments of ops/vff's and
     ops/asvgp's functions."""
     return _tensor(a, dtype, device), _tensor(b, dtype, device)
+
+
+def kiss_state_from_jax(grid_size, starts, steps, params_np, dtype=None,
+                        device=None):
+    """The grid of a JAX KISSGPModel (`grid_size`, `_starts`, `_steps`) and
+    its GPR hyperparameters ({name: array}, as `get_parameters()` gives them)
+    -> (grid_size, starts [d], steps [d], {name: tensor}), the arguments of
+    ops/ski's and ops/ski_structured's functions."""
+    return (int(grid_size), _tensor(starts, dtype, device),
+            _tensor(steps, dtype, device),
+            params_from_jax(params_np, dtype, device))
+
+
+def multioutput_state_from_jax(W, H, R, lengthscales, kernel_variance,
+                               Z=None, q_mu=None, q_sqrt_raw=None,
+                               dtype=None, device=None):
+    """The state of a JAX MultioutputGPRModel or MultioutputSVGPModel ->
+    {name: tensor}: W [L, Q], H [P, L] (None for a nonlinear forward
+    model), R [P, P], lengthscales [Q, D], kernel_variance [Q], and for the
+    SVGP model Z [M, D], q_mu [M, Q] and q_sqrt_raw [Q, M, M]."""
+    state = {"W": W, "H": H, "R": R, "lengthscales": lengthscales,
+             "kernel_variance": kernel_variance, "Z": Z, "q_mu": q_mu,
+             "q_sqrt_raw": q_sqrt_raw}
+    return {k: _tensor(v, dtype, device) for k, v in state.items()
+            if v is not None}
 
 
 def unconstrained_from_jax(u_np, dtype=None, device=None):

@@ -289,15 +289,14 @@ def test_get_model_names_and_aliases(name, cls):
 @pytest.mark.parametrize("name", ["SVGPModel", "GPflowVFFModel", "ASVGPModel",
                                   "KISSGPModel", "MultioutputGPRModel"])
 def test_get_model_names_the_slice_of_an_unported_family(name):
-    """A family still to port raises, naming its slice (7b: KISS-GP and the
-    multioutput models); the families of slice 7a (SVGP, VFF, ASVGP)
-    resolve to the port's class of the JAX package's name."""
+    """Every family of the JAX package is ported: the families of slices 7a
+    (SVGP, VFF, ASVGP) and 7b (KISS-GP, the multioutput models) resolve to
+    the port's class of the JAX package's name, in the port's package; an
+    unknown name raises, listing the available ones."""
     want = jax_get_model(name).__name__       # the JAX package has it
-    if want in ("SVGPModel", "VFFModel", "ASVGPModel"):
-        assert get_model(name).__name__ == want
-    else:
-        with pytest.raises(NotImplementedError, match="slice 7b"):
-            get_model(name)
+    cls = get_model(name)
+    assert cls.__name__ == want
+    assert cls.__module__.startswith("gpsat_tpu_torch.models.")
     with pytest.raises(NotImplementedError, match="available"):
         get_model("NoSuchModel")
 

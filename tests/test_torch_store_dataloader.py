@@ -572,7 +572,8 @@ GUARD = textwrap.dedent("""
     # the other model families, through the same function
     import importlib
     for m in ("ops.svgp", "ops.vff", "ops.asvgp", "models.svgp",
-              "models.vff", "models.asvgp"):
+              "models.vff", "models.asvgp", "ops.ski", "ops.ski_structured",
+              "ops.multioutput", "models.kiss_gpr", "models.multioutput"):
         importlib.import_module("gpsat_tpu_torch." + m)
     from gpsat_tpu_torch.models import get_model
     locs = np.array([x.mean(axis=0) for x in X])
@@ -601,8 +602,9 @@ def test_execute_buckets_runs_without_pandas_h5py_or_jax():
     """The card's machine has no pandas and no h5py, and the port uses no
     jax: importing gpsat_tpu_torch.local_experts and running execute_buckets
     (CPU, f64; GPRModel, then SVGPModel, VFFModel and ASVGPModel, whose
-    modules are imported too) must work with the three blocked, and load no
-    module of the JAX package."""
+    modules are imported too, as are KISS-GP's and the multioutput models')
+    must work with the three blocked, and load no module of the JAX
+    package."""
     env = {**os.environ, "PYTHONPATH": REPO}
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)

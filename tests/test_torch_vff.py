@@ -392,21 +392,20 @@ JAX_NAMES = ("GPRModel", "KISSGPModel", "SGPRModel", "SVGPModel", "VFFModel",
              "sklearnGPRModel", "GPyTorchGPRModel", "GPyTorchKISSGPModel")
 ENGINE_OF = {"GPRModel": "BatchedGPR", "SGPRModel": "BatchedSGPR",
              "SVGPModel": "BatchedSVGP", "VFFModel": "BatchedVFF",
-             "ASVGPModel": "BatchedASVGP"}
+             "ASVGPModel": "BatchedASVGP", "KISSGPModel": "BatchedGPR",
+             "MultioutputGPRModel": "BatchedGPR",
+             "MultioutputSVGPModel": "BatchedSVGP"}
 
 
 @pytest.mark.parametrize("name", JAX_NAMES)
 def test_get_model_and_make_engine(name):
     """Every name of the JAX package's get_model: the port's class of the
     same name (aliases included) and make_engine's engine for it, as the JAX
-    pipeline picks (gpsat_tpu/local_experts.py:572-582); the KISS-GP and
-    multioutput names raise, naming slice 7b. A subclass of the port's model
-    takes its parent's engine."""
+    pipeline picks (gpsat_tpu/local_experts.py:572-582): the KISS-GP and
+    multioutput models by the name fallback (BatchedGPR, BatchedGPR and
+    BatchedSVGP). A subclass of the port's model takes its parent's
+    engine."""
     want = jax_get_model(name).__name__
-    if want in ("KISSGPModel", "MultioutputGPRModel", "MultioutputSVGPModel"):
-        with pytest.raises(NotImplementedError, match="slice 7b"):
-            get_model(name)
-        return
     cls = get_model(name)
     assert cls.__name__ == want
     init = {"num_inducing_features": 4} \
