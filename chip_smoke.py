@@ -67,11 +67,20 @@ Phases (any failure exits non-zero; nothing is caught):
      and nonlinear) on a two-instrument fusion of the largest expert, each
      against f64 at the card's state (the fits also against f64 fits on the
      card from the same start, the structured one with the same probes);
-     make_engine's engine for each new name.
+     make_engine's engine for each new name;
+ 10. the expert mesh (every card, or two shards of cuda:0 on their own
+     streams): phase 6's GPR and SGPR runs again through
+     execute_buckets(mesh=...), each shard's pool iterations, every expert
+     against phase 6's one-device run bit for bit (an expert that differs
+     is counted and held against f64), a torch.profiler trace in which the
+     shards' streams run at once; phase 7's fields through the sharded and
+     the tiled smoothers against its dense result; entry_points.
+     dryrun_multichip over the mesh; batched_lbfgs(engine="optax") on 8
+     bench gpr experts against the custom engine's optimum.
 The line before the last is a JSON object with one entry per kernel (its
-launches in phases 3-4, in phase 6's GPR and SGPR runs and in phase 7); the
-last line is {"ok": true, "device": {...}}. Imports nothing of JAX or
-gpsat_tpu.
+launches in phases 3-4, in phase 6's GPR and SGPR runs, in phase 7 and in
+phase 10's runs); the last line is {"ok": true, "device": {...}}. Imports
+nothing of JAX or gpsat_tpu.
 """
 
 import json
@@ -1116,11 +1125,11 @@ def subset(inp, ids):
             "pred_list": [inp["pred_list"][i] for i in ids]}
 
 
-def run_pipeline(engine, inp):
+def run_pipeline(engine, inp, mesh=None):
     from gpsat_tpu_torch.local_experts import execute_buckets
     return execute_buckets(
         engine, inp["X_list"], inp["obs_list"], inp["pred_list"],
-        coords_scale=ARCTIC_MODEL["init_params"]["coords_scale"])
+        coords_scale=ARCTIC_MODEL["init_params"]["coords_scale"], mesh=mesh)
 
 
 def pred_valid(out):
@@ -1385,10 +1394,10 @@ def centre_experts(inp, cfg=SGPR_RUN):
 
 def phase_pipeline_sgpr(cuda_gpr, inp):
     """SGPRModel through make_engine (route and M from init_params) and
-    execute_buckets: experts of the centre with N between 1024 and 2048."""
+    execute_buckets: experts of the centre with N between 1024 and 2048.
+    Returns {"launches", "sub" (the experts' inputs), "out"}."""
     from gpsat_tpu_torch.local_experts import make_engine
     from gpsat_tpu_torch.models.sgpr import SGPRModel
-    from gpsat_tpu_torch.ops import sgpr as sgpr_math
     cfg = SGPR_RUN
     sub = centre_experts(inp)
     n = sub["n"]
@@ -1422,8 +1431,16 @@ def phase_pipeline_sgpr(cuda_gpr, inp):
     for k in ("f*", "f*_var", "y_var"):
         require(np.isfinite(out["preds"][k][valid]).all(),
                 f"SGPR non-finite {k}")
-    # every expert against ops/sgpr.predict in f64 on the card at the fitted
-    # parameters and inducing points, in chunks of 32, each key at PRED_TOL
+    hold_sgpr_f64(f"SGPR vs f64 ({len(n)} experts)", sub, out, engine)
+    return {"launches": launches, "sub": sub, "out": out}
+
+
+def hold_sgpr_f64(name, sub, out, engine):
+    """Every expert of an SGPR run against ops/sgpr.predict in f64 on the
+    card at its fitted parameters and inducing points, in chunks of 32,
+    each key at PRED_TOL."""
+    from gpsat_tpu_torch.ops import sgpr as sgpr_math
+    valid = pred_valid(out)
     width = valid.shape[1]
     ref = {k: np.full_like(out["preds"][k], np.nan) for k in PRED_TOL}
     for bk in buckets_of(sub):
@@ -1444,8 +1461,7 @@ def phase_pipeline_sgpr(cuda_gpr, inp):
                 kernel=engine.kernel, jitter=engine.jitter)
             for k in ref:
                 ref[k][ids] = pr[k].cpu().numpy()[:, :width]
-    hold_preds(f"SGPR vs f64 ({len(n)} experts)", out["preds"], ref, valid)
-    return launches
+    hold_preds(name, out["preds"], ref, valid)
 
 
 # configs/example_postprocessing.json: the fields it smooths, their
@@ -1507,7 +1523,7 @@ def phase_smoothed(cuda_gpr, inp, fitted, rmse_fit):
     fields (smoothed_fields), then execute_buckets with them and
     optimise=False, as LocalExpertOI.run does for the follow-up config that
     smooth_hyperparameters writes. Returns the launches of the re-predict,
-    {kernel: launches}."""
+    {kernel: launches}, and the smoothed parameters."""
     from gpsat_tpu_torch.local_experts import execute_buckets, make_engine
     from gpsat_tpu_torch.models.exact_gpr import GPRModel
 
@@ -1567,7 +1583,7 @@ def phase_smoothed(cuda_gpr, inp, fitted, rmse_fit):
           f"{len(pred_xy)} points: RMSE {rmse:.5f} (phase 6's fit "
           f"{rmse_fit:.5f}, observation noise {ARCTIC['noise']})")
     require(rmse < ARCTIC["noise"], f"RMSE {rmse} not below the noise")
-    return launches
+    return launches, smoothed
 
 
 # ---------------------------------------------------------------------------
@@ -2350,6 +2366,252 @@ def phase_kiss_multioutput(inp):
           f"MultioutputGPR {d[2]:.1f} s, MultioutputSVGP {d[3]:.1f} s")
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the expert mesh
+# ---------------------------------------------------------------------------
+
+# the smoothers over the mesh against phase 7's dense result (the JAX
+# package's test bounds, tests/test_postprocessing.py:119 and :137)
+SHARDED_ATOL = 1e-10
+TILED_TOL = (1e-7, 1e-9)
+# the cross-check engine against the custom one, f32 NLML at each optimum
+OPTAX_RTOL = 1e-3
+
+
+def mesh_of_run():
+    """Every card where there are two or more; else two shards of cuda:0,
+    each on its own stream."""
+    from gpsat_tpu_torch.parallel.mesh import get_mesh
+    if torch.cuda.device_count() >= 2:
+        return get_mesh()
+    return get_mesh(devices=["cuda:0", "cuda:0"])
+
+
+def differing_fields(a, b):
+    """{field: [E] bool}: the experts whose iterations, converged,
+    objective, each parameter and each prediction (on its valid points)
+    differ between runs a and b in any bit (NaN equal to NaN)."""
+    def neq(x, y):
+        x, y = np.asarray(x), np.asarray(y)
+        d = (x != y) & ~(np.isnan(x) & np.isnan(y)) if x.dtype.kind == "f" \
+            else x != y
+        return d.reshape(len(d), -1).any(axis=1)
+    valid = pred_valid(a)
+    out = {k: neq(a[k], b[k]) for k in ("iterations", "converged",
+                                        "objective")}
+    out.update({k: neq(a["params"][k], b["params"][k]) for k in a["params"]})
+    out.update({k: neq(np.where(valid, a["preds"][k], 0.0),
+                       np.where(valid, b["preds"][k], 0.0))
+                for k in PRED_KEYS})
+    return out
+
+
+def report_mesh_run(name, out, ref):
+    """Print a mesh run's levels (seconds, each shard's pool iterations)
+    and its experts that differ from the one-device run `ref`, by field.
+    Returns [E] bool, the experts that differ in any field."""
+    for b, r in zip(out["buckets"], ref["buckets"]):
+        print(f"  {name} level N={b['n_max']} P={b['p_max']}: {b['experts']} "
+              f"experts, {b['seconds']:.3f} s (one device {r['seconds']:.3f} "
+              f"s), pool iterations by shard {b['shard_pool_iterations']} "
+              f"(one device {r['pool_iterations']})")
+    fields = differing_fields(out, ref)
+    diff = np.any(list(fields.values()), axis=0)
+    print(f"{name}: {int(diff.sum())} of {len(diff)} experts differ from the "
+          f"one-device run in any bit; by field "
+          f"{ {k: int(v.sum()) for k, v in fields.items()} }")
+    return diff
+
+
+def shard_overlap(engine, inp, mesh, experts=512):
+    """One torch.profiler trace of fit_predict_many over the mesh on the
+    first `experts` experts of the largest level: each shard stream's busy
+    ms and the ms during which two streams were busy at once."""
+    from gpsat_tpu_torch.device_profile import overlap_us, stream_busy
+    bk = buckets_of(inp)[-1]
+    X, y, mask, Xs, *_ = assembled(inp, bk)
+    rows = slice(0, min(experts, len(bk["indices"])))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        engine.fit_predict_many(X[rows], y[rows], mask[rows], Xs=Xs[rows],
+                                mesh=mesh)
+        torch.cuda.synchronize()
+    busy = stream_busy(prof)
+    streams = {k: sum(b - a for a, b in iv) * 1e-3 for k, iv in busy.items()}
+    # the shards' streams: the mesh.size busiest (the profiler names a
+    # stream by its own id; the default stream carries the few copies made
+    # outside the shards)
+    top = sorted(streams, key=streams.get, reverse=True)[:mesh.size]
+    both = overlap_us({k: busy[k] for k in top}) * 1e-3
+    return bk["n_max"], rows.stop, streams, top, both
+
+
+def phase_mesh_pipeline(cuda_gpr, inp, fitted, sgpr, mesh):
+    """Phase 6's GPR and SGPR runs again through execute_buckets(mesh=...):
+    launches, each shard's pool iterations, every expert against phase 6's
+    one-device run (differing experts held against f64 at PRED_TOL), and
+    the trace's evidence that the shards' streams overlap. Returns the
+    launches of the two runs."""
+    from gpsat_tpu_torch.local_experts import make_engine
+    from gpsat_tpu_torch.models.exact_gpr import GPRModel
+    from gpsat_tpu_torch.models.sgpr import SGPRModel
+
+    engine = make_engine(GPRModel, ARCTIC_MODEL["init_params"],
+                         ARCTIC_MODEL["constraints"], coords_dim=3)
+    E = len(inp["X_list"])
+    cuda_gpr.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_pipeline(engine, inp, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda_gpr.launch_counts().items() if v}
+    print(f"mesh GPR: E={E} execute {wall:.3f} s ({E / wall:.2f} experts/s) "
+          f"over {mesh.size} shards, launches={launches}")
+    require(launches.get("nlml_vg", 0) > 0 and
+            launches.get("posterior_predict", 0) > 0,
+            f"mesh GPR: a kernel was not launched: {launches}")
+    diff = report_mesh_run("mesh GPR", out, fitted)
+    require(float(np.mean(out["converged"])) >= 0.99,
+            "mesh GPR converged fraction")
+    if diff.any():
+        perr, _ = check_gpr_against_f64(inp, out, engine.kernel,
+                                        name="mesh GPR vs f64")
+        print(f"mesh GPR vs f64 at its fitted parameters (all {E} "
+              f"experts): predictions max_abs_err {perr:.3e}")
+
+    sub = sgpr["sub"]
+    init = dict(ARCTIC_MODEL["init_params"], num_inducing_points=SGPR_RUN["M"],
+                route=SGPR_RUN["route"])
+    s_engine = make_engine(SGPRModel, init, ARCTIC_MODEL["constraints"],
+                           coords_dim=3)
+    cuda_gpr.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_out = run_pipeline(s_engine, sub, mesh)
+    torch.cuda.synchronize()
+    s_wall = time.perf_counter() - t0
+    s_launches = {k: v for k, v in cuda_gpr.launch_counts().items() if v}
+    print(f"mesh SGPR: E={len(sub['X_list'])} route={SGPR_RUN['route']} "
+          f"{s_wall:.3f} s (one device: phase 6), launches={s_launches}")
+    require(s_launches.get("sgpr_vg_mega", 0) > 0 and
+            s_launches.get("cholinv", 0) > 0,
+            f"mesh SGPR: a kernel was not launched: {s_launches}")
+    s_diff = report_mesh_run("mesh SGPR", s_out, sgpr["out"])
+    if s_diff.any():
+        hold_sgpr_f64("mesh SGPR vs f64", sub, s_out, s_engine)
+
+    n_top, width, streams, top, both = shard_overlap(engine, inp, mesh)
+    print(f"mesh overlap trace (fit_predict_many, level N={n_top}, first "
+          f"{width} experts): busy ms by (device, stream) "
+          f"{ {k: round(v, 3) for k, v in streams.items()} }; the shards' "
+          f"streams {top} busy at once {both:.3f} ms")
+    require(len(streams) >= mesh.size,
+            f"the trace shows {len(streams)} busy streams, not one a shard")
+    require(both > 0, "the shards' streams never ran at once")
+    return {k: launches.get(k, 0) + s_launches.get(k, 0)
+            for k in set(launches) | set(s_launches)}
+
+
+
+def phase_mesh_smoothers(inp, fitted, smoothed, mesh):
+    """Phase 7's five fields smoothed over the mesh by the sharded and the
+    tiled smoother, with smooth_field's clamps, each held against phase 7's
+    dense result (SHARDED_ATOL, TILED_TOL)."""
+    from gpsat_tpu_torch.postprocessing import (gaussian_2d_smooth_sharded,
+                                                gaussian_2d_smooth_tiled)
+    x, y = inp["experts"][:, 0], inp["experts"][:, 1]
+    lx, ly = SMOOTHING["l_x"], SMOOTHING["l_y"]
+    secs = {}
+    for name, v in fitted["params"].items():
+        cols = v.reshape(len(x), -1)
+        want = smoothed[name].reshape(len(x), -1)
+        hi = SMOOTHING["max"].get(name)
+        for j in range(cols.shape[1]):
+            field = f"{name}[{j}]" if cols.shape[1] > 1 else name
+            vals = cols[:, j] if hi is None else np.minimum(cols[:, j], hi)
+            for kind, fn in (("sharded", gaussian_2d_smooth_sharded),
+                             ("tiled", gaussian_2d_smooth_tiled)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = fn(x, y, x, y, lx, ly, vals, mesh=mesh)
+                torch.cuda.synchronize()
+                secs[(kind, field)] = time.perf_counter() - t0
+                got = got if hi is None else np.minimum(got, hi)
+                err = float(np.max(np.abs(got - want[:, j])))
+                print(f"mesh smoothed {field} ({kind}): "
+                      f"{secs[(kind, field)]:.4f} s, max_abs_err {err:.3e} "
+                      f"against phase 7's dense result")
+                rtol, atol = (0.0, SHARDED_ATOL) if kind == "sharded" \
+                    else TILED_TOL
+                np.testing.assert_allclose(got, want[:, j], rtol=rtol,
+                                           atol=atol,
+                                           err_msg=f"{kind} {field}")
+    return secs
+
+
+def phase_optax(workload, bench_gpr_engine, E=8):
+    """batched_lbfgs(engine="optax") on E experts of the bench gpr workload
+    (autograd through the f32 NLML on the card) against the custom
+    engine's optimum on the same start: NLML within OPTAX_RTOL."""
+    from gpsat_tpu_torch.models.exact_gpr import make_gpr_objective
+    from gpsat_tpu_torch.ops.lbfgs import batched_lbfgs, linesearch_policy
+    X, y, mask, _ = workload(E, N, 1, D)
+    eng = bench_gpr_engine(D)
+    objective, _ = make_gpr_objective(eng.kernel, eng.free_names, eng.d)
+    init = eng._initial_params_batch(E, y_var=eng._signal_variance(y, mask))
+    fixed = {n: eng._tensor(init[n]) for n in eng.HYPER_NAMES
+             if n not in eng.free_names}
+    args = (eng._tensor(X), eng._tensor(y), eng._tensor(mask, torch.bool),
+            eng._batched_bijectors(E), fixed)
+    u0 = eng._unconstrained(init, E)
+    mls, rec = linesearch_policy(eng.dtype, "gpr", n=N)
+    walls, res = {}, {}
+    for name in ("custom", "optax"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[name] = batched_lbfgs(objective, u0, args, eng.max_iter, eng.gtol,
+                                  eng.ftol, 10, mls, rec, engine=name)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    f = {k: r.fun.cpu().numpy() for k, r in res.items()}
+    rel = float(np.max(np.abs(f["optax"] / f["custom"] - 1)))
+    print(f"optax engine: {E} bench gpr experts (N={N}, f32 on the card) in "
+          f"{walls['optax']:.3f} s ({walls['custom']:.3f} s custom), "
+          f"iterations {res['optax'].iterations.tolist()} (custom "
+          f"{res['custom'].iterations.tolist()}), NLML max rel err "
+          f"{rel:.3e} against the custom engine (rtol {OPTAX_RTOL})")
+    require(np.isfinite(f["optax"]).all(), "optax engine: non-finite NLML")
+    np.testing.assert_allclose(f["optax"], f["custom"], rtol=OPTAX_RTOL,
+                               err_msg="optax engine NLML")
+
+
+def phase_mesh(cuda_gpr, inp, fitted, sgpr, smoothed, workload,
+               bench_gpr_engine):
+    """Phase 10: the expert mesh. Returns the launches of its pipeline
+    runs, {kernel: launches}."""
+    from gpsat_tpu_torch.entry_points import dryrun_multichip
+    t = [time.perf_counter()]
+    mesh = mesh_of_run()
+    print(f"mesh: {mesh} on "
+          f"{[torch.cuda.get_device_name(d) for d in mesh.devices]}, "
+          f"streams {[getattr(mesh.stream(k), 'cuda_stream', None) for k in range(mesh.size)]}")
+    launches = phase_mesh_pipeline(cuda_gpr, inp, fitted, sgpr, mesh)
+    t.append(time.perf_counter())
+    phase_mesh_smoothers(inp, fitted, smoothed, mesh)
+    t.append(time.perf_counter())
+    dryrun_multichip(mesh.size, devices=mesh.devices)
+    t.append(time.perf_counter())
+    phase_optax(workload, bench_gpr_engine)
+    t.append(time.perf_counter())
+    d = np.diff(t)
+    print(f"phase 10: pipelines {d[0]:.1f} s, smoothers {d[1]:.1f} s, "
+          f"dryrun {d[2]:.1f} s, optax {d[3]:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2394,12 +2656,15 @@ def main():
     launches["sgpr_vg_mega"] = s_launches["mega"]["sgpr_vg_mega"]
     phase_models(workload, _bench_common(D))
     gpr_pipe, sgpr_pipe, arctic, fitted, rmse_fit = phase_pipeline(cuda_gpr)
-    smoothed_pipe = phase_smoothed(cuda_gpr, arctic, fitted, rmse_fit)
+    smoothed_pipe, smoothed = phase_smoothed(cuda_gpr, arctic, fitted,
+                                             rmse_fit)
     cuda_gpr.reset_launch_counts()
     phase_families(arctic)
     phase_kiss_multioutput(arctic)
     launched = {k: v for k, v in cuda_gpr.launch_counts().items() if v}
     require(not launched, f"phases 8-9 launched kernels: {launched}")
+    mesh_pipe = phase_mesh(cuda_gpr, arctic, fitted, sgpr_pipe, smoothed,
+                           workload, bench_gpr_engine)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2430,8 +2695,9 @@ def main():
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": launches[name], **rows[key],
                "pipeline_launches": gpr_pipe.get(name, 0),
-               "pipeline_sgpr_launches": sgpr_pipe.get(name, 0),
-               "pipeline_smoothed_launches": smoothed_pipe.get(name, 0)}
+               "pipeline_sgpr_launches": sgpr_pipe["launches"].get(name, 0),
+               "pipeline_smoothed_launches": smoothed_pipe.get(name, 0),
+               "pipeline_mesh_launches": mesh_pipe.get(name, 0)}
         for field in ("launches", "max_abs_err", "ms", "plain_ms",
                       "bound_ms", "bound_by"):
             require(row.get(field) is not None, f"{name}: no {field}")

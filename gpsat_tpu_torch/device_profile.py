@@ -57,3 +57,39 @@ def gv_share_ms(fn, reps=5, groups=GV_GROUPS):
         torch.cuda.synchronize()
     return {g: ms / reps
             for g, ms in by_gv_group(device_times(prof), groups).items()}
+
+
+def stream_busy(prof):
+    """{(device index, stream): merged busy intervals [(start_us, end_us)]}
+    of the device activity (kernels, copies) in a torch.profiler trace."""
+    spans = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = (evt.device_index, getattr(evt, "device_resource_id", None))
+        spans.setdefault(key, []).append((evt.time_range.start,
+                                          evt.time_range.end))
+    busy = {}
+    for key, iv in spans.items():
+        merged = []
+        for a, b in sorted(iv):
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        busy[key] = merged
+    return busy
+
+
+def overlap_us(busy):
+    """Microseconds of the trace during which at least two streams of
+    stream_busy(prof) were busy at once."""
+    edges = sorted((t, d) for iv in busy.values() for a, b in iv
+                   for t, d in ((a, 1), (b, -1)))
+    depth, last, both = 0, 0.0, 0.0
+    for t, d in edges:
+        if depth >= 2:
+            both += t - last
+        depth += d
+        last = t
+    return both

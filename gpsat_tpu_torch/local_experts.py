@@ -22,8 +22,9 @@ imported; the methods that build DataFrames or open a store import them.
 Semantics preserved from the JAX package: min_obs skipping (recorded for
 restart), zero-pred-loc records, config-id provenance, anti-join resume,
 load_params re-prediction, constraint handling incl. coords_scale'd
-lengthscale bounds. The JAX package's device mesh is not ported yet: the port
-runs one device per process (ROADMAP.md, Queue A item 11).
+lengthscale bounds, and the device mesh: with more than one card, `run`
+splits each level's experts over every card (parallel/mesh), as the JAX
+package shards them over its devices.
 """
 
 import json
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from gpsat_tpu_torch import resolve_device
+from gpsat_tpu_torch.parallel.mesh import get_mesh
 from gpsat_tpu_torch.parallel.scheduler import make_buckets
 
 __all__ = ["LocalExpertOI", "LocalExpertData", "get_results_from_h5file",
@@ -82,6 +84,12 @@ class LocalExpertData:
                                col_select=self.col_select, engine=self.engine,
                                source_kwargs=self.read_kwargs, verbose=verbose,
                                **kwargs)
+
+
+def _device_count(device):
+    """Devices a run on `device` can split its experts over: every card for
+    a CUDA device, one otherwise."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
 def _device_name(device):
@@ -207,7 +215,8 @@ def _put(out, ids, v):
 def execute_buckets(engine, X_list, obs_list, pred_list, coords_scale=1.0,
                     obs_scale=1.0, obs_mean=None, overrides=None,
                     optimise=True, predict=True, batch_size=None,
-                    on_bucket=None, verbose=False, expert_locs=None):
+                    on_bucket=None, verbose=False, expert_locs=None,
+                    mesh=None):
     """Fit and predict E experts given as per-expert numpy arrays: group them
     into padded levels (`make_buckets`), assemble each level on the host
     (`assemble_bucket`, one level ahead in a thread while the engine runs the
@@ -223,7 +232,9 @@ def execute_buckets(engine, X_list, obs_list, pred_list, coords_scale=1.0,
     them it takes each expert's data centroid).
     `on_bucket(ids, result, f_bar, per_expert_time)`, if given, is called
     after each level with the engine's result for the experts `ids` (f_bar
-    [B], seconds per expert).
+    [B], seconds per expert). `mesh` (parallel/mesh.Mesh), if given, goes to
+    every `fit_predict_many`, which splits the level's experts over its
+    shards.
 
     Returns per-expert arrays: params {name: [E, *engine.param_shape(name)]}
     (NaN where a level holds fewer inducing points than the engine's M),
@@ -232,7 +243,8 @@ def execute_buckets(engine, X_list, obs_list, pred_list, coords_scale=1.0,
     run_time [E] (the level's seconds per expert); and `buckets`, one dict a
     level: n_max, p_max, experts, seconds (the JAX package's bucket time),
     assemble_seconds, engine_seconds, pool_iterations (of the level's last
-    pool run, 0 where the level ran no pool).
+    pool run, 0 where the level ran no pool) and shard_pool_iterations (each
+    shard's of that run; [] where the level ran no pool).
     """
     E = len(X_list)
     coords_scale = np.atleast_2d(coords_scale).astype(float)
@@ -276,10 +288,11 @@ def execute_buckets(engine, X_list, obs_list, pred_list, coords_scale=1.0,
                 pending = prefetch.submit(assemble, buckets[bki + 1])
             ids = bk["indices"]
             engine._last_pool_iterations = 0
+            engine._last_shard_pool_iterations = []
             t1 = time.perf_counter()
             result = engine.fit_predict_many(
                 X, y, mask, Xs=Xs, optimise=optimise, predict=predict,
-                param_overrides=ov, expert_locs=el_scaled)
+                param_overrides=ov, expert_locs=el_scaled, mesh=mesh)
             t2 = time.perf_counter()
             b = len(ids)
             bucket_time = t2 - t0
@@ -303,7 +316,9 @@ def execute_buckets(engine, X_list, obs_list, pred_list, coords_scale=1.0,
                 "n_max": bk["n_max"], "p_max": bk["p_max"], "experts": b,
                 "seconds": bucket_time, "assemble_seconds": t_asm,
                 "engine_seconds": t2 - t1,
-                "pool_iterations": int(engine._last_pool_iterations)})
+                "pool_iterations": int(engine._last_pool_iterations),
+                "shard_pool_iterations": list(
+                    engine._last_shard_pool_iterations)})
             if on_bucket is not None:
                 on_bucket(ids, result, f_bar, per_expert_time)
             if verbose:
@@ -525,14 +540,17 @@ class LocalExpertOI:
 
     def run(self, store_path=None, store_every=10, check_config_compatible=True,
             skip_valid_checks_on=None, optimise=True, predict=True, min_obs=3,
-            table_suffix="", batch_size=None, multihost="auto",
-            verbose=True):
+            table_suffix="", batch_size=None, use_mesh=True,
+            multihost="auto", verbose=True):
         """Full sweep: train + predict every expert location, batched.
 
         API and store schema match the JAX package's run (and the
         reference's, GPSat/local_experts.py:761); `batch_size` caps the
-        experts handed to the engine per level. The JAX package's `use_mesh`
-        is not taken: the port runs one device per process.
+        experts handed to the engine per level. With `use_mesh` and more
+        than one card (torch.cuda.device_count() for a CUDA engine; a CPU
+        engine counts one device), each level's experts split over every
+        card (parallel/mesh.get_mesh), as the JAX package decides it
+        (gpsat_tpu/local_experts.py:445-461).
 
         multihost: "auto" (default) detects a multi-process run (initialised
         torch.distributed, GPSAT_PROCESS_ID/GPSAT_NUM_PROCESSES, or SLURM_*)
@@ -672,6 +690,8 @@ class LocalExpertOI:
             self._buffer(store_buffer, "run_details", rd)
 
         # -- phases 2-3: bucket + execute, storing each level as it ends ----
+        mesh = get_mesh() if (use_mesh and _device_count(engine.device) > 1) \
+            else None
         X_list, obs_list, pred_list = [], [], []
         for ei in run_ids:
             gdf = local_dfs[group_of_expert[ei]]
@@ -694,7 +714,7 @@ class LocalExpertOI:
             obs_scale=obs_scale, obs_mean=obs_mean_cfg, overrides=run_overrides,
             optimise=optimise, predict=predict, batch_size=batch_size,
             on_bucket=store_bucket, verbose=verbose,
-            expert_locs=xprt_locs.loc[run_ids, coords_col].values)
+            expert_locs=xprt_locs.loc[run_ids, coords_col].values, mesh=mesh)
 
         # flush remaining (e.g. only skip records)
         self._flush(store_buffer, store_path, table_suffix, force=True)

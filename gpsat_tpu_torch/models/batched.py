@@ -11,8 +11,15 @@ ops/cuda_sgpr.py); everything else runs the torch paths of ops/ (autograd
 for the gradients), as the JAX engines run XLA outside their Pallas gates.
 
 Inputs may be numpy arrays or tensors; results come back as numpy arrays.
+
+With a `mesh` (parallel/mesh.Mesh), `fit_predict_many` splits the experts
+over its shards as the JAX engines shard them over a device mesh: one L-BFGS
+pool per shard, the prediction fill of each chunk split across the shards,
+and chunks of the chunked path run as one `fit_predict` per shard, each
+under its shard's device and stream.
 """
 
+from contextlib import contextmanager
 from functools import lru_cache
 
 import numpy as np
@@ -140,6 +147,11 @@ class BatchedGPR:
         self.d = int(coords_dim)
         self.kernel = kernel
         self.device = resolve_device(device)
+        # (mask of the chunk, first row of this call) while a chunk runs as
+        # one fit_predict per shard: the call then takes the chunk's
+        # line-search gate and continues the chunk's seeded draws, as one
+        # call over the whole chunk would (None: the call is the chunk)
+        self._chunk_ctx = None
         if isinstance(dtype, str):
             dtype = getattr(torch, dtype)
         self.dtype = default_dtype(self.device) if dtype is None else dtype
@@ -220,6 +232,33 @@ class BatchedGPR:
             return a.to(self.device, dtype)
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
+    @contextmanager
+    def _on_shard(self, mesh, k):
+        """Run the enclosed engine work as shard k of `mesh` (its device and
+        scope); without a mesh, on the engine's device as it is."""
+        if mesh is None:
+            yield
+            return
+        saved = self.device
+        self.device = mesh.devices[k]
+        try:
+            with mesh.scope(k):
+                yield
+        finally:
+            self.device = saved
+
+    def _seeded_rng(self, seed, consumes):
+        """default_rng(seed) advanced past the draws of the chunk's experts
+        before this call's (see _chunk_ctx): consumes(n_valid) says whether
+        an expert with n_valid points draws a permutation of them."""
+        rng = np.random.default_rng(seed)
+        if self._chunk_ctx is not None:
+            chunk_mask, first = self._chunk_ctx
+            for n_valid in chunk_mask[:first].sum(axis=1):
+                if consumes(int(n_valid)):
+                    rng.permutation(int(n_valid))
+        return rng
+
     def _spec(self):
         return ParamSpec([(n, self.param_shape(n)) for n in self.free_names])
 
@@ -289,7 +328,8 @@ class BatchedGPR:
             optimise=bool(optimise), do_predict=bool(do_predict),
             max_iter=self.max_iter, gtol=self.gtol, ftol=self.ftol,
             compute_fval=bool(compute_fval),
-            ls_n=_min_valid_size(mask, X.shape[1]))
+            ls_n=_min_valid_size(mask if self._chunk_ctx is None
+                                 else self._chunk_ctx[0], X.shape[1]))
 
     def _snapshot_state(self):
         """Engine side-state captured before a collapse-restart re-run
@@ -374,19 +414,38 @@ class BatchedGPR:
     # -- pooled multi-chunk execution ---------------------------------------
 
     def _chunked_fit_predict(self, X, y, mask, Xs, optimise, predict,
-                             param_overrides, B, expert_locs=None):
-        """Sequential fit_predict over B-sized chunks."""
+                             param_overrides, B, expert_locs=None,
+                             mesh=None):
+        """Sequential fit_predict over B-sized chunks. Under a mesh of n
+        shards, a chunk whose width is a multiple of n runs as n fit_predict
+        calls, one per contiguous block, each on its shard's device (B is
+        then the whole-mesh width); its line-search gate is the chunk's, as
+        the JAX engine's sharded chunk is one program. A ragged chunk runs
+        unsharded (gpsat_tpu/models/batched.py:359-389)."""
         E = X.shape[0]
+        n_sh = 1 if mesh is None else mesh.size
         outs = []
         for s in range(0, E, B):
             e = min(s + B, E)
-            ov = None if param_overrides is None else \
-                {k: v[s:e] for k, v in param_overrides.items()}
-            outs.append(self.fit_predict(
-                X[s:e], y[s:e], mask[s:e], Xs=None if Xs is None else Xs[s:e],
-                optimise=optimise, predict=predict, param_overrides=ov,
-                expert_locs=None if expert_locs is None
-                else expert_locs[s:e]))
+            sharded = n_sh > 1 and (e - s) % n_sh == 0
+            parts = np.array_split(np.arange(s, e), n_sh if sharded else 1)
+            try:
+                for k, rows in enumerate(parts):
+                    a, b = rows[0], rows[-1] + 1
+                    ov = None if param_overrides is None else \
+                        {n: v[a:b] for n, v in param_overrides.items()}
+                    self._chunk_ctx = (_np(mask[s:e]).astype(bool), a - s) \
+                        if sharded else None
+                    with self._on_shard(mesh if sharded else None, k):
+                        outs.append(self.fit_predict(
+                            X[a:b], y[a:b], mask[a:b],
+                            Xs=None if Xs is None else Xs[a:b],
+                            optimise=optimise, predict=predict,
+                            param_overrides=ov,
+                            expert_locs=None if expert_locs is None
+                            else expert_locs[a:b]))
+            finally:
+                self._chunk_ctx = None
 
         def cat(key):
             return np.concatenate([o[key] for o in outs], axis=0)
@@ -446,10 +505,11 @@ class BatchedGPR:
             return min(1024, bucket_level(E))
         return B_pool
 
-    def _pool_optimize(self, init, X, y, mask, slots, extra=()):
+    def _pool_optimize(self, init, X, y, mask, slots, extra=(), mesh=None):
         """Pooled L-BFGS over E same-shape experts (see
-        ops/lbfgs.batched_lbfgs_pool). Returns numpy (u [E,P], f, conv,
-        iters)."""
+        ops/lbfgs.batched_lbfgs_pool; under `mesh`, one pool per shard, the
+        line-search policy taken once over the whole level). Returns numpy
+        (u [E,P], f, conv, iters)."""
         E = X.shape[0]
         fixed = {n: self._tensor(init[n]) for n in self.HYPER_NAMES
                  if n not in self.free_names}
@@ -465,8 +525,10 @@ class BatchedGPR:
             + extra + (self._batched_bijectors(E), fixed),
             slots=slots, max_iter=self.max_iter, gtol=self.gtol,
             ftol=self.ftol, vg_fun=vg_fun, max_linesearch_steps=mls,
-            recovery_steps=rec)
+            recovery_steps=rec, mesh=mesh)
         self._last_pool_iterations = int(res.pool_iterations)
+        self._last_shard_pool_iterations = res.get(
+            "shard_pool_iterations", [self._last_pool_iterations])
         return (_np(res.x).copy(), _np(res.fun).copy(),
                 _np(res.converged).copy(), _np(res.iterations).copy())
 
@@ -478,7 +540,7 @@ class BatchedGPR:
 
     def fit_predict_many(self, X, y, mask, Xs=None, optimise=True,
                          predict=True, param_overrides=None, slots=None,
-                         expert_locs=None):
+                         expert_locs=None, mesh=None):
         """Sweep E same-padded-shape experts (arguments as fit_predict's,
         with E in place of B).
 
@@ -488,15 +550,29 @@ class BatchedGPR:
         moment they converge, so the batch never waits for its slowest
         expert. With `optimise=False`, no free parameters, E <= slots or an
         engine without pool support, falls back to chunked fit_predict.
+
+        With `mesh` (parallel/mesh.Mesh, on devices of the engine's type),
+        the experts split over its shards (gpsat_tpu/models/batched.py:
+        491-620): the pool runs one pool per shard (`slots` is the
+        per-shard width; E <= slots * shards falls back to the chunked
+        path, whose chunks then span the mesh), and each chunk of the
+        prediction fill is split across the shards, every shard's launches
+        issued before the chunk's first read back to the host.
         """
         from gpsat_tpu_torch.parallel.scheduler import auto_batch_size
         E, N = X.shape[0], X.shape[1]
         P = 0 if Xs is None else Xs.shape[1]
+        n_sh = 1 if mesh is None else mesh.size
+        if mesh is not None and any(d.type != self.device.type
+                                    for d in mesh.devices):
+            raise ValueError(f"mesh {mesh} is not on the engine's device "
+                             f"type ({self.device})")
         B = int(slots or min(E, auto_batch_size(N, P, device=self.device)))
-        if not self._pool_supported(optimise) or E <= B:
+        if not self._pool_supported(optimise) or E <= B * n_sh:
             return self._chunked_fit_predict(X, y, mask, Xs, optimise,
                                              predict, param_overrides,
-                                             min(B, E), expert_locs)
+                                             min(B * n_sh, E), expert_locs,
+                                             mesh=mesh)
 
         mask_np = _np(mask).astype(bool)
         y_np = _np(y)
@@ -506,7 +582,7 @@ class BatchedGPR:
         init = self._initial_params_batch(E, param_overrides, y_var=y_var,
                                           clamp=True)
         u, fval, conv, iters = self._pool_optimize(init, X, y, mask_np, B,
-                                                   extra=extra)
+                                                   extra=extra, mesh=mesh)
 
         # collapse-restart (same policy as fit_predict) on the failed subset
         params = self._constrained_np(u)
@@ -519,7 +595,7 @@ class BatchedGPR:
             alt_rows = {k: np.asarray(v)[ids] for k, v in alt.items()}
             u2, f2, c2, i2 = self._pool_optimize(
                 alt_rows, _np(X)[ids], y_np[ids], mask_np[ids], B,
-                extra=tuple(_np(a)[ids] for a in extra))
+                extra=tuple(_np(a)[ids] for a in extra), mesh=mesh)
             take = np.isfinite(f2) & (f2 < fval[ids])
             if take.any():
                 rows = ids[take]
@@ -528,36 +604,55 @@ class BatchedGPR:
                 conv[rows] = c2[take]
                 iters[rows] = i2[take]
 
-        # predictions + fixed-param fill through the optimise=False program
+        # predictions + fixed-param fill through the optimise=False program,
+        # in chunks (a mesh multiple under a mesh), each split across the
+        # shards
         do_predict = predict and Xs is not None
         B = self._fill_chunk_width(E, X, Xs, B, do_predict)
+        sharded = n_sh > 1 and B >= n_sh
+        if sharded:
+            B -= B % n_sh
         out_params = {n: np.empty((E,) + self.param_shape(n))
                       for n in self.HYPER_NAMES}
         preds_out = {}
-        X_t, y_t = self._tensor(X), self._tensor(y)
-        Xs_t = None if Xs is None else self._tensor(Xs)
-        u_t = self._tensor(u)
-        for s in range(0, E, B):
-            sl = slice(s, min(s + B, E))
-            n = sl.stop - s
+        X_np, y_np = _np(X), _np(y)
+        Xs_np = None if Xs is None else _np(Xs)
+
+        def launch(rows):
+            n = len(rows)
             Xs_in = torch.zeros(n, 1, self.d, dtype=self.dtype,
-                                device=self.device) if Xs_t is None \
-                else Xs_t[sl]
-            fixed_chunk = {k: self._tensor(np.asarray(init[k])[sl])
+                                device=self.device) if Xs_np is None \
+                else self._tensor(Xs_np[rows])
+            fixed_chunk = {k: self._tensor(np.asarray(init[k])[rows])
                            for k in self.HYPER_NAMES
                            if k not in self.free_names}
-            self._pool_select_chunk(np.arange(s, sl.stop))
+            self._pool_select_chunk(rows)
             p_chunk, _, _, _, pr = self._call_program(
-                u_t[sl], X_t[sl], y_t[sl], mask_np[sl], Xs_in,
+                self._tensor(u[rows]), self._tensor(X_np[rows]),
+                self._tensor(y_np[rows]), mask_np[rows], Xs_in,
                 self._batched_bijectors(n), fixed_chunk, False, do_predict,
                 compute_fval=False)
-            for k in self.HYPER_NAMES:
-                out_params[k][sl] = _np(p_chunk[k]).reshape(
-                    (n,) + self.param_shape(k))
-            for k, v in pr.items():
-                if k not in preds_out:
-                    preds_out[k] = np.empty((E,) + tuple(v.shape[1:]))
-                preds_out[k][sl] = _np(v)
+            return p_chunk, pr
+
+        for s in range(0, E, B):
+            parts = [p for p in np.array_split(np.arange(s, min(s + B, E)),
+                                               n_sh if sharded else 1)
+                     if len(p)]
+            shard_mesh = mesh if sharded else None
+            pending = []
+            for k, rows in enumerate(parts):
+                with self._on_shard(shard_mesh, k):
+                    pending.append(launch(rows))
+            for k, (rows, (p_chunk, pr)) in enumerate(zip(parts, pending)):
+                with self._on_shard(shard_mesh, k):
+                    n = len(rows)
+                    for name in self.HYPER_NAMES:
+                        out_params[name][rows] = _np(p_chunk[name]).reshape(
+                            (n,) + self.param_shape(name))
+                    for key, v in pr.items():
+                        if key not in preds_out:
+                            preds_out[key] = np.empty((E,) + tuple(v.shape[1:]))
+                        preds_out[key][rows] = _np(v)
 
         return self._pool_finalize(
             {"params": out_params, "objective": fval, "converged": conv,
@@ -743,7 +838,7 @@ class BatchedSGPR(BatchedGPR):
         M = min(self.num_inducing, N)
         Z = np.zeros((B, M, d))
         zmask = np.zeros((B, M), dtype=bool)
-        rng = np.random.default_rng(self.inducing_seed)
+        rng = self._seeded_rng(self.inducing_seed, lambda n: n > M)
         for b in range(B):
             valid = np.where(mask[b])[0]
             if len(valid) == 0:
@@ -807,7 +902,11 @@ class BatchedSGPR(BatchedGPR):
             max_iter=self.max_iter, gtol=self.gtol, ftol=self.ftol,
             jitter=self.jitter, train_z=train_z,
             compute_fval=bool(compute_fval), route=self.route)
-        self._Z_final = _np(Z).copy()
+        # fixed Z comes back as it went in: its engine-dtype values on the
+        # host, with no read from the device (a read here would wait for
+        # the prediction, and serialise the shards of a mesh's fill)
+        self._Z_final = _np(Z).copy() if train_z else \
+            self._Z.astype(_np(torch.empty(0, dtype=self.dtype)).dtype)
         return params, fval, conv, iters, preds
 
     # -- pooled execution hooks ----------------------------------------------
@@ -1145,7 +1244,7 @@ class BatchedSVGP(BatchedSGPR):
         draws)."""
         mask = _np(mask)
         B, N = mask.shape
-        rng = np.random.default_rng(self.minibatch_seed)
+        rng = self._seeded_rng(self.minibatch_seed, lambda n: n > 0)
         perm = np.zeros((B, N + mb), dtype=np.int64)
         for b in range(B):
             valid = np.where(mask[b])[0]

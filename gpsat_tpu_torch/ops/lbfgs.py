@@ -1,5 +1,5 @@
 """Batched L-BFGS with per-expert convergence (torch port of
-gpsat_tpu/ops/lbfgs.py, single device).
+gpsat_tpu/ops/lbfgs.py).
 
 The loop lives at the *batch* level and only the objective is batched: one
 value-and-gradient trial per slot per iteration, a [B] done-mask, and a
@@ -10,11 +10,14 @@ stays on the device.
 
 The pooled variant (`batched_lbfgs_pool`) runs a `slots`-wide batch whose
 slots refill from the expert queue the moment they converge, so the batch
-never waits for its slowest expert.
+never waits for its slowest expert; under a device mesh, one such pool per
+shard. `batched_lbfgs(engine="optax")` is the JAX package's per-expert
+cross-check engine.
 """
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 __all__ = ["batched_lbfgs", "batched_lbfgs_pool", "LBFGSResult",
@@ -251,20 +254,116 @@ def _value_and_grad_of(fun, args):
 
 def batched_lbfgs(fun, x0, args=(), max_iter=500, gtol=1e-6, ftol=1e-11,
                   memory_size=10, max_linesearch_steps=12,
-                  recovery_steps=None, vg_fun=None):
+                  recovery_steps=None, vg_fun=None, engine="custom"):
     """Minimise the batched objective `fun(x [B, P], *args) -> [B]`.
 
     `args` leaves have a leading batch dim B. `vg_fun(x, *args) -> (f, g)`,
     if given, replaces autograd through `fun` (the fused CUDA kernel path).
+    `engine="optax"` runs the numerical cross-check instead (_optax_engine:
+    one minimisation per expert, autograd through `fun`, vg_fun unused).
     Returns LBFGSResult with x [B, P], fun [B], converged [B], iterations [B].
     """
     args = tuple(args)
+    if engine == "optax":
+        return _optax_engine(fun, x0, args, max_iter, gtol, ftol,
+                             memory_size, max_linesearch_steps)
+    if engine != "custom":
+        raise ValueError(f"engine must be 'custom' or 'optax', not {engine!r}")
     vg = (lambda x: vg_fun(x, *args)) if vg_fun is not None \
         else _value_and_grad_of(fun, args)
     x, f, conv, iters = _batch_lbfgs_loop(vg, x0, max_iter, gtol, ftol,
                                           memory_size, max_linesearch_steps,
                                           recovery_steps)
     return LBFGSResult(x=x, fun=f, converged=conv, iterations=iters)
+
+
+# ---------------------------------------------------------------------------
+# the cross-check engine: one minimisation per expert (the JAX package's
+# optax engine, gpsat_tpu/ops/lbfgs.py:600-650, which vmaps optax.lbfgs with
+# its zoom line search). Here torch.optim.LBFGS with its strong-Wolfe line
+# search takes the steps, so trajectories differ from optax's while the
+# contract is the same: the best finite point seen, and converged = done
+# (gradient or f-change test, or a non-finite step) within max_iter, each
+# step's line search at most max_linesearch_steps evaluations. On no sweep
+# path.
+# ---------------------------------------------------------------------------
+
+def _optax_single(f, x0, max_iter, gtol, ftol, memory_size,
+                  max_linesearch_steps):
+    """Minimise the scalar f(x [P]) from x0: (best x, best f, converged,
+    iterations). One LBFGS.step is one iteration: its first evaluation is
+    at the point the step starts from, the rest are its line search. The
+    optimiser's own stopping tests are off: the contract's decide."""
+    x = x0.detach().clone().requires_grad_(True)
+    opt = torch.optim.LBFGS([x], lr=1.0, max_iter=1,
+                            max_eval=max_linesearch_steps + 1,
+                            history_size=memory_size, tolerance_grad=0.0,
+                            tolerance_change=0.0,
+                            line_search_fn="strong_wolfe")
+    first = []
+
+    def closure():
+        opt.zero_grad()
+        val = f(x)
+        val.backward()
+        if not first:      # (value, grad) at the point the step starts from
+            first.append((float(val.detach()), x.grad.detach().clone()))
+        if not torch.isfinite(val):
+            # the line search takes a non-finite trial as infinitely bad
+            # (it cannot bracket a NaN) and backs off from it
+            x.grad.zero_()
+            return torch.full_like(val.detach(), torch.inf)
+        return val
+
+    with torch.no_grad():
+        f0 = float(f(x0))
+    best_f = f0 if np.isfinite(f0) else np.inf
+    best_x = x0.detach().clone()
+    prev_f, done, it = np.inf, False, 0
+    with torch.enable_grad():
+        while it < max_iter and not done:
+            x_at = x.detach().clone()
+            first.clear()
+            opt.step(closure)
+            value, grad = first[0]
+            finite = np.isfinite(value) and bool(torch.isfinite(x).all())
+            if finite and value < best_f:
+                best_f, best_x = value, x_at
+            grad_small = float(grad.abs().max()) < gtol
+            f_change = abs(prev_f - value) <= ftol * max(abs(prev_f),
+                                                         abs(value), 1.0)
+            done = grad_small or (it > 0 and f_change) or not finite
+            it += 1
+            prev_f = value
+    with torch.no_grad():
+        f_final = float(f(x))
+    if np.isfinite(f_final) and bool(torch.isfinite(x).all()) \
+            and f_final < best_f:
+        best_f, best_x = f_final, x.detach().clone()
+    return best_x, best_f, done and it <= max_iter, it
+
+
+def _optax_engine(fun, x0, args, max_iter, gtol, ftol, memory_size,
+                  max_linesearch_steps):
+    B = x0.shape[0]
+    xs, fs, cs, its = [], [], [], []
+    for i in range(B):
+        args_i = _tree_map(lambda a: a[i:i + 1]
+                           if a.ndim >= 1 and a.shape[0] == B else a, args)
+
+        def f(x, args_i=args_i):
+            return fun(x[None], *args_i)[0]
+        x, fv, c, it = _optax_single(f, x0[i], max_iter, gtol, ftol,
+                                     memory_size, max_linesearch_steps)
+        xs.append(x)
+        fs.append(fv)
+        cs.append(c)
+        its.append(it)
+    dev = x0.device
+    return LBFGSResult(
+        x=torch.stack(xs), fun=torch.tensor(fs, dtype=x0.dtype, device=dev),
+        converged=torch.tensor(cs, dtype=torch.bool, device=dev),
+        iterations=torch.tensor(its, dtype=torch.int32, device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -279,9 +378,10 @@ def batched_lbfgs(fun, x0, args=(), max_iter=500, gtol=1e-6, ftol=1e-11,
 
 
 def _tree_map(fn, tree):
-    """Apply `fn` to every tensor of a tuple/list/dict/Bijector tree."""
+    """Apply `fn` to every tensor (and numpy array) of a
+    tuple/list/dict/Bijector tree."""
     from gpsat_tpu_torch.ops.transforms import Bijector
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
         return fn(tree)
     if isinstance(tree, Bijector):
         return tree.map_tensors(fn)
@@ -292,64 +392,82 @@ def _tree_map(fn, tree):
     return tree
 
 
-def _pool_core(fun, x0_all, args_all, slots, max_iter, gtol, ftol,
-               memory_size, max_linesearch_steps, vg_fun=None,
-               recovery_steps=None):
-    E, P = x0_all.shape
-    B = slots
-    dtype, dev = x0_all.dtype, x0_all.device
-    m = memory_size
+class _Pool:
+    """The state of one slot pool over E experts, advanced one iteration at
+    a time by `step`; `running()` is a device bool (is any slot live?).
+    A one-device run is one pool; a mesh runs one pool per shard (see
+    _pool_mesh)."""
 
-    def gather(ids):
-        """Per-slot arg rows for this iteration's objective call."""
-        return _tree_map(lambda a: a.index_select(0, ids)
-                        if a.ndim >= 1 and a.shape[0] == E else a, args_all)
+    def __init__(self, fun, x0_all, args_all, slots, max_iter, gtol, ftol,
+                 memory_size, max_linesearch_steps, vg_fun=None,
+                 recovery_steps=None):
+        E, P = x0_all.shape
+        B = slots
+        dtype, dev = x0_all.dtype, x0_all.device
+        self.E, self.B, self.P, self.dtype = E, B, P, dtype
+        self.x0_all, self.args_all = x0_all, args_all
+        self.fun, self.vg_fun = fun, vg_fun
+        self.opts = (max_iter, gtol, ftol, memory_size, max_linesearch_steps,
+                     recovery_steps)
+        ids0 = torch.arange(B, device=dev)
+        self.carry = _init_carry(self._vg_at(ids0), x0_all[:B], gtol,
+                                 memory_size)
+        self.slot_expert = ids0
+        self.next_expert = torch.tensor(B, device=dev)
+        self.live = torch.ones(B, dtype=torch.bool, device=dev)
+        # [E + 1] outputs: row E takes the writes of slots that harvest
+        # nothing
+        self.ox = torch.cat([x0_all, x0_all[:1]], dim=0)
+        self.of = torch.zeros(E + 1, dtype=dtype, device=dev)
+        self.oc = torch.zeros(E + 1, dtype=torch.bool, device=dev)
+        self.oi = torch.zeros(E + 1, dtype=torch.int32, device=dev)
+        self.inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
 
-    def vg_at(ids):
-        args = gather(ids)
-        if vg_fun is not None:
-            return lambda x: vg_fun(x, *args)
-        return _value_and_grad_of(fun, args)
+    def _vg_at(self, ids):
+        """value_and_grad over the per-slot arg rows `ids`."""
+        E = self.E
+        args = _tree_map(lambda a: a.index_select(0, ids)
+                         if a.ndim >= 1 and a.shape[0] == E else a,
+                         self.args_all)
+        if self.vg_fun is not None:
+            return lambda x: self.vg_fun(x, *args)
+        return _value_and_grad_of(self.fun, args)
 
-    ids0 = torch.arange(B, device=dev)
-    carry = _init_carry(vg_at(ids0), x0_all[:B], gtol, m)
-    slot_expert = ids0
-    next_expert = torch.tensor(B, device=dev)
-    live = torch.ones(B, dtype=torch.bool, device=dev)
-    # [E + 1] outputs: row E takes the writes of slots that harvest nothing
-    ox = torch.cat([x0_all, x0_all[:1]], dim=0)
-    of = torch.zeros(E + 1, dtype=dtype, device=dev)
-    oc = torch.zeros(E + 1, dtype=torch.bool, device=dev)
-    oi = torch.zeros(E + 1, dtype=torch.int32, device=dev)
-    inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
+    def running(self):
+        return torch.any(self.live)
 
-    while bool(torch.any(live)):
-        step = _make_step(vg_at(slot_expert), B, P, dtype, max_iter, gtol,
-                          ftol, m, max_linesearch_steps, recovery_steps)
-        c = step(carry)
-        harvest = c.done & live
-        idx = torch.where(harvest, slot_expert, torch.full_like(slot_expert, E))
-        ox[idx] = c.x
-        of[idx] = c.f
-        oc[idx] = c.iters < max_iter
-        oi[idx] = c.iters
+    def step(self):
+        """One iteration of every slot, then harvest and refill."""
+        E, B = self.E, self.B
+        max_iter, gtol, ftol, m, mls, rec = self.opts
+        step = _make_step(self._vg_at(self.slot_expert), B, self.P,
+                          self.dtype, max_iter, gtol, ftol, m, mls, rec)
+        c = step(self.carry)
+        slot_expert = self.slot_expert
+        harvest = c.done & self.live
+        idx = torch.where(harvest, slot_expert,
+                          torch.full_like(slot_expert, E))
+        self.ox[idx] = c.x
+        self.of[idx] = c.f
+        self.oc[idx] = c.iters < max_iter
+        self.oi[idx] = c.iters
         # refill freed slots from the queue (prefix-sum assignment)
         order = torch.cumsum(harvest.to(torch.int64), dim=0)
-        new_id = next_expert + order - 1
+        new_id = self.next_expert + order - 1
         ok = harvest & (new_id < E)
-        slot_expert = torch.where(ok, new_id, slot_expert)
-        live = (live & ~harvest) | ok
-        next_expert = torch.clamp_max(next_expert + order[-1], E)
+        self.slot_expert = torch.where(ok, new_id, slot_expert)
+        self.live = (self.live & ~harvest) | ok
+        self.next_expert = torch.clamp_max(self.next_expert + order[-1], E)
         okc = ok[:, None]
-        x = torch.where(okc, x0_all.index_select(
+        x = torch.where(okc, self.x0_all.index_select(
             0, torch.clamp(new_id, 0, E - 1)), c.x)
         # a refilled slot bootstraps through the NEXT regular iteration:
         # with f=inf, g=0 the direction is 0, the unchanged point is accepted
         # on its first trial and that trial's value_and_grad delivers its
         # (f0, g0); iters=-1 keeps the bootstrap pass off its budget
-        carry = Carry(
+        self.carry = Carry(
             c.it, x,
-            torch.where(ok, inf, c.f),
+            torch.where(ok, self.inf, c.f),
             torch.where(okc, torch.zeros_like(c.g), c.g),
             torch.where(ok[None, :, None], torch.zeros_like(c.S), c.S),
             torch.where(ok[None, :, None], torch.zeros_like(c.Y), c.Y),
@@ -360,24 +478,97 @@ def _pool_core(fun, x0_all, args_all, slots, max_iter, gtol, ftol,
             torch.where(ok, torch.zeros_like(c.fail_cnt), c.fail_cnt),
             torch.where(ok, torch.ones_like(c.t), c.t),
             torch.where(ok, torch.zeros_like(c.backed), c.backed))
-    # carry.it = total pool iterations (= trials per slot), a diagnostic
-    return ox[:E], of[:E], oc[:E], oi[:E], carry.it
+
+    def result(self):
+        """(x, f, converged, iterations) [E], and the pool iterations (=
+        trials per slot, a diagnostic)."""
+        E = self.E
+        return (self.ox[:E], self.of[:E], self.oc[:E], self.oi[:E],
+                self.carry.it)
+
+
+def _pool_mesh(pool_args, x0_all, args_all, slots, mesh):
+    """One independent pool per shard of `mesh`, with no collective: E is
+    padded to a mesh multiple by repeating the leading experts, each shard
+    drains its contiguous block through a pool of width min(slots, E_pad /
+    n), and the repeats are dropped. A slot's trajectory depends only on its
+    own expert, so every expert ends as in the one-device pool
+    (gpsat_tpu/ops/lbfgs.py:402-440).
+
+    One host thread drives the shards in lockstep: each turn issues one
+    iteration of every live shard under its scope (device and stream), and
+    only then reads each shard's any(live). Returns ((x, f, converged,
+    iterations) on x0_all's device, [pool iterations of each shard])."""
+    from gpsat_tpu_torch.parallel.mesh import pad_to_multiple, shard_experts
+    E = x0_all.shape[0]
+    n = mesh.size
+    pad = pad_to_multiple(E, n) - E
+    if pad:
+        def rep(a):
+            return torch.cat([a, a[:pad]], dim=0) \
+                if a.ndim >= 1 and a.shape[0] == E else a
+        x0_all, args_all = rep(x0_all), _tree_map(rep, args_all)
+    B = int(min(slots, (E + pad) // n))
+    x0_sh = shard_experts(x0_all, mesh)
+    args_sh = shard_experts(args_all, mesh)
+    pools = []
+    for k in range(n):
+        with mesh.scope(k):
+            pools.append(_Pool(pool_args[0], x0_sh[k], args_sh[k], B,
+                               *pool_args[1:]))
+    live = list(range(n))
+    while live:
+        flags = []
+        for k in live:
+            with mesh.scope(k):
+                pools[k].step()
+                flags.append(pools[k].running())
+        still = []
+        for k, flag in zip(live, flags):
+            with mesh.scope(k):
+                if bool(flag):
+                    still.append(k)
+        live = still
+    parts, nits = [], []
+    for k in range(n):
+        with mesh.scope(k):
+            *out, nit = pools[k].result()
+            parts.append([t.cpu() for t in out])
+            nits.append(int(nit))
+    out = tuple(torch.cat(ts, dim=0)[:E].to(x0_all.device)
+                for ts in zip(*parts))
+    return out, nits
 
 
 def batched_lbfgs_pool(fun, x0_all, args_all, slots, max_iter=500, gtol=1e-6,
                        ftol=1e-11, memory_size=10, max_linesearch_steps=12,
-                       vg_fun=None, recovery_steps=None):
+                       vg_fun=None, recovery_steps=None, mesh=None):
     """Minimise `fun` for E independent problems through a `slots`-wide pool
     (see the block comment above).
 
     x0_all: [E, P]; args_all: tree with [E, ...] leaves. Returns LBFGSResult
     with [E]-shaped fields and `pool_iterations`. Per-expert results equal
     the one-shot batched loop's.
+
+    With `mesh` (parallel/mesh.Mesh) of more than one shard, the experts
+    split over the shards and each shard drains its own pool (`slots` is the
+    per-shard width; see _pool_mesh): per-expert results equal the
+    one-device pool's, `pool_iterations` is the largest of the shards' and
+    `shard_pool_iterations` lists them.
     """
     E, P = x0_all.shape
-    B = int(min(slots, E))
-    x, f, conv, iters, nit = _pool_core(
-        fun, x0_all, tuple(args_all), B, max_iter, gtol, ftol, memory_size,
-        max_linesearch_steps, vg_fun=vg_fun, recovery_steps=recovery_steps)
+    args_all = tuple(args_all)
+    pool_args = (fun, max_iter, gtol, ftol, memory_size,
+                 max_linesearch_steps, vg_fun, recovery_steps)
+    if mesh is not None and mesh.size > 1:
+        (x, f, conv, iters), nits = _pool_mesh(pool_args, x0_all, args_all,
+                                               slots, mesh)
+        return LBFGSResult(x=x, fun=f, converged=conv, iterations=iters,
+                           pool_iterations=max(nits),
+                           shard_pool_iterations=nits)
+    pool = _Pool(fun, x0_all, args_all, int(min(slots, E)), *pool_args[1:])
+    while bool(pool.running()):
+        pool.step()
+    x, f, conv, iters, nit = pool.result()
     return LBFGSResult(x=x, fun=f, converged=conv, iterations=iters,
                        pool_iterations=nit)

@@ -9,17 +9,54 @@ stripe of the expert grid (`partition_experts`) and writes to its own
 rank-namespaced store (`rank_store_path`): no cross-process locking, HDF5
 stays single-writer. `merge_result_stores` concatenates the per-rank stores
 into the single results file the post-processing stack expects.
-
-The JAX package's `init_distributed` comes with the port's multi-GPU slice
-(ROADMAP.md, Queue A item 11).
+`init_distributed` starts a torch.distributed process group where one is
+wanted, so that rank and world come from the group; the sweep itself has no
+collective.
 
 CLI:  python -m gpsat_tpu_torch.parallel.multihost merge OUT IN1 IN2 [...]
 """
 
 import os
 
-__all__ = ["process_info", "partition_experts", "rank_store_path",
-           "rank_store_paths", "merge_result_stores"]
+__all__ = ["init_distributed", "process_info", "partition_experts",
+           "rank_store_path", "rank_store_paths", "merge_result_stores"]
+
+
+def init_distributed(coordinator_address=None, num_processes=None,
+                     process_id=None, local_device_ids=None):
+    """Start the torch.distributed process group of a multi-process run
+    (gpsat_tpu/parallel/multihost.py:32, with init_process_group in the
+    place of jax.distributed.initialize).
+
+    Safe to call unconditionally: a no-op when a group is already
+    initialised, or when no argument is given and the environment describes
+    one process (process_info) with no MASTER_ADDR. `coordinator_address`
+    "host:port" becomes init_method "tcp://host:port" (else torch's env://
+    rendezvous, MASTER_ADDR and MASTER_PORT); `num_processes` and
+    `process_id` default to process_info()'s world and rank. The backend is
+    nccl when the process has a card and gloo otherwise; `local_device_ids`
+    (an int or a sequence, the first taken) picks the process's card.
+    """
+    import torch
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return
+    if num_processes is None and coordinator_address is None \
+            and process_info()[1] == 1 and "MASTER_ADDR" not in os.environ:
+        return
+    rank, world = process_info()
+    world = world if num_processes is None else int(num_processes)
+    rank = rank if process_id is None else int(process_id)
+    cuda = torch.cuda.is_available()
+    if local_device_ids is not None and cuda:
+        ids = local_device_ids if isinstance(local_device_ids, (list, tuple)) \
+            else [local_device_ids]
+        torch.cuda.set_device(int(ids[0]))
+    dist.init_process_group(
+        backend="nccl" if cuda else "gloo",
+        init_method=None if coordinator_address is None
+        else f"tcp://{coordinator_address}",
+        world_size=world, rank=rank)
 
 
 def process_info():

@@ -8,13 +8,17 @@ device: E ~ 1e4 experts is a 1e8-pair elementwise problem and one
 matrix-vector product per block of output rows. Rows are processed in
 blocks so the [rows, E] temporaries stay bounded whatever E is.
 
+Over a device mesh (parallel/mesh.Mesh) two smoothers split the output
+rows: `gaussian_2d_smooth_sharded` gives each shard a block of rows against
+every source, and `gaussian_2d_smooth_tiled` a strip of rows along x against
+the sources within a halo of it. Each shard's blocks are issued on its own
+device and stream before the first result is read back.
+
 `smooth_field` is the numpy core of one field slice (clamp, smooth, clamp);
-`smooth_hyperparameters` is the results-store wrapper around it. pandas is
-imported only inside the functions that build DataFrames, so the core runs
-where pandas and h5py are absent. The JAX package's multi-device strip and
-sharded smoothers wait for the port's multi-GPU slice; on one device every
-`method` gives the dense smoother, as the JAX package's one-device branch
-does.
+`smooth_hyperparameters` is the results-store wrapper around it, with the
+JAX package's choice between the dense and the tiled smoother (`method`).
+pandas is imported only inside the functions that build DataFrames, so the
+core runs where pandas and h5py are absent.
 """
 
 import argparse
@@ -32,6 +36,7 @@ from gpsat_tpu_torch.utils import (cprint, json_serializable,
 
 __all__ = ["SmoothingConfig", "smooth_field", "smooth_hyperparameters",
            "gaussian_2d_smooth", "gaussian_2d_smooth_masked",
+           "gaussian_2d_smooth_sharded", "gaussian_2d_smooth_tiled",
            "glue_local_predictions_1d", "glue_local_predictions_2d"]
 
 #: bytes of one [rows, E] float64 temporary of a smoothing block
@@ -51,14 +56,9 @@ def _smooth_block(x0, y0, x, y, l_x, l_y, v, ok):
     return torch.where(empty, torch.full_like(out, torch.nan), out)
 
 
-def gaussian_2d_smooth(x0, y0, x, y, l_x, l_y, vals, device=None):
-    """Gaussian-kernel smooth of vals at source (x, y) evaluated at (x0, y0),
-    in float64 on `device` (the card unless the caller passes another); NaN
-    sources are skipped, and an output with no weighted source is NaN
-    (reference: postprocessing.py:22). Output rows go in blocks whose
-    [rows, E] temporary is BLOCK_BYTES. Returns a numpy array."""
-    dev = resolve_device(device)
-
+def _smooth_launch(x0, y0, x, y, l_x, l_y, vals, dev):
+    """Issue gaussian_2d_smooth's work on `dev` (and its current stream);
+    returns the [E_out] float64 tensor there, not yet read back."""
     def t(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
     x0, y0, x, y, vals = (t(a) for a in (x0, y0, x, y, vals))
@@ -72,16 +72,125 @@ def gaussian_2d_smooth(x0, y0, x, y, l_x, l_y, vals, device=None):
         e = min(s + rows, E_out)
         out[s:e] = _smooth_block(x0[s:e], y0[s:e], x, y, float(l_x),
                                  float(l_y), v, ok)
-    return out.cpu().numpy()
+    return out
+
+
+def gaussian_2d_smooth(x0, y0, x, y, l_x, l_y, vals, device=None):
+    """Gaussian-kernel smooth of vals at source (x, y) evaluated at (x0, y0),
+    in float64 on `device` (the card unless the caller passes another); NaN
+    sources are skipped, and an output with no weighted source is NaN
+    (reference: postprocessing.py:22). Output rows go in blocks whose
+    [rows, E] temporary is BLOCK_BYTES. Returns a numpy array."""
+    return _smooth_launch(x0, y0, x, y, l_x, l_y, vals,
+                          resolve_device(device)).cpu().numpy()
+
+
+def _masked_sources(sm, vals):
+    """Padded sources (sm False) as NaN values, which the smoother skips."""
+    return np.where(np.asarray(sm, dtype=bool), vals, np.nan)
 
 
 def gaussian_2d_smooth_masked(x0, y0, m0, x, y, sm, l_x, l_y, vals,
                               device=None):
     """The tile-local smoother: padded outputs (m0 False -> NaN) against
     padded sources (sm False -> skipped), as gaussian_2d_smooth otherwise."""
-    vals = np.where(np.asarray(sm, dtype=bool), vals, np.nan)
-    out = gaussian_2d_smooth(x0, y0, x, y, l_x, l_y, vals, device=device)
+    out = gaussian_2d_smooth(x0, y0, x, y, l_x, l_y, _masked_sources(sm, vals),
+                             device=device)
     out[~np.asarray(m0, dtype=bool)] = np.nan
+    return out
+
+
+def _on_mesh(mesh, launches):
+    """Issue launches[k]() under shard k's scope for every k, then read each
+    result back under the same scope: numpy arrays in shard order."""
+    pending = []
+    for k, fn in enumerate(launches):
+        with mesh.scope(k):
+            pending.append(fn(mesh.devices[k]))
+    out = []
+    for k, t in enumerate(pending):
+        with mesh.scope(k):
+            out.append(t.cpu().numpy())
+    return out
+
+
+def gaussian_2d_smooth_sharded(x0, y0, x, y, l_x, l_y, vals, mesh=None):
+    """Multi-device Gaussian smoother (gpsat_tpu/postprocessing.py:389-446):
+    output rows padded to a mesh multiple and split into one contiguous
+    block per shard, every source copied to each shard's device, each block
+    through gaussian_2d_smooth's f64 blocks there. `mesh` defaults to every
+    card (parallel/mesh.get_mesh); one shard is the dense smoother."""
+    from gpsat_tpu_torch.parallel.mesh import get_mesh, pad_to_multiple
+    mesh = get_mesh() if mesh is None else mesh
+    n_dev = mesh.size
+    if n_dev == 1:
+        return gaussian_2d_smooth(x0, y0, x, y, l_x, l_y, vals,
+                                  device=mesh.devices[0])
+    E_out = len(x0)
+    E_pad = pad_to_multiple(E_out, n_dev)
+
+    def pad(a):
+        a = np.asarray(a, dtype=np.float64)
+        return np.concatenate([a, np.zeros(E_pad - len(a))])
+    x0p, y0p = pad(x0), pad(y0)
+    b = E_pad // n_dev
+
+    def launch(k):
+        blk = slice(k * b, (k + 1) * b)
+        return lambda dev: _smooth_launch(x0p[blk], y0p[blk], x, y, l_x, l_y,
+                                          vals, dev)
+    out = _on_mesh(mesh, [launch(k) for k in range(n_dev)])
+    return np.concatenate(out)[:E_out]
+
+
+def gaussian_2d_smooth_tiled(x0, y0, x, y, l_x, l_y, vals, mesh=None,
+                             halo_factor=6.0):
+    """Halo tiled smoother (gpsat_tpu/postprocessing.py:71-158): each shard
+    owns a strip of output experts along x (a stable argsort of x0 split
+    into mesh.size strips) and the sources within `halo_factor * l_x` of
+    its strip, assembled on the host and padded to the widest strip and
+    halo; each strip runs gaussian_2d_smooth_masked's computation on its
+    shard's device. Sources beyond the halo carry weight below
+    exp(-halo_factor^2 / 2) (~1.5e-8 at 6 sigma). One shard, or fewer than
+    two outputs a shard, gives the dense smoother. `mesh` defaults to every
+    card."""
+    from gpsat_tpu_torch.parallel.mesh import get_mesh
+    mesh = get_mesh() if mesh is None else mesh
+    n_dev = mesh.size
+    x0, y0, x, y, vals = (np.asarray(a, dtype=np.float64)
+                          for a in (x0, y0, x, y, vals))
+    E_out = len(x0)
+    if n_dev == 1 or E_out < 2 * n_dev:
+        return gaussian_2d_smooth(x0, y0, x, y, l_x, l_y, vals,
+                                  device=mesh.devices[0])
+
+    # strips: quantile split of outputs along x (balanced counts)
+    order = np.argsort(x0, kind="stable")
+    strips = np.array_split(order, n_dev)
+    R = float(halo_factor) * float(l_x)
+    src_idx = []
+    for s in strips:
+        lo, hi = x0[s].min() - R, x0[s].max() + R
+        src_idx.append(np.where((x >= lo) & (x <= hi))[0])
+    S_max = max(max(len(si) for si in src_idx), 1)
+    Eo_max = max(len(s) for s in strips)
+
+    def padded(a, idx, width, fill=0.0):
+        out = np.full(width, fill)
+        out[:len(idx)] = a[idx]
+        return out
+
+    def launch(k):
+        s, si = strips[k], src_idx[k]
+        sm = np.arange(S_max) < len(si)
+        return lambda dev: _smooth_launch(
+            padded(x0, s, Eo_max), padded(y0, s, Eo_max),
+            padded(x, si, S_max), padded(y, si, S_max), l_x, l_y,
+            _masked_sources(sm, padded(vals, si, S_max, np.nan)), dev)
+    tiles = _on_mesh(mesh, [launch(k) for k in range(n_dev)])
+    out = np.full(E_out, np.nan)
+    for s, tile in zip(strips, tiles):
+        out[s] = tile[:len(s)]
     return out
 
 
@@ -113,17 +222,23 @@ def _resolve_component_limit(limit, row, dim_cols):
     return limit
 
 
-def smooth_field(x0, y0, vals, l_x, l_y, min=None, max=None, device=None):
+def smooth_field(x0, y0, vals, l_x, l_y, min=None, max=None, device=None,
+                 mesh=None):
     """One field slice of smooth_hyperparameters, numpy in and out: clamp
-    vals to [min, max], Gaussian-smooth them over the same (x0, y0), and
+    vals to [min, max], Gaussian-smooth them over the same (x0, y0) (with
+    `mesh`, by the tiled smoother over it; else densely on `device`), and
     clamp the result again (reference: postprocessing.py:253-277)."""
     vals = np.asarray(vals, dtype=float).copy()
     if max is not None:
         vals[vals > max] = max
     if min is not None:
         vals[vals < min] = min
-    smoothed = gaussian_2d_smooth(x0, y0, x0, y0, l_x, l_y, vals,
-                                  device=device)
+    if mesh is not None:
+        smoothed = gaussian_2d_smooth_tiled(x0, y0, x0, y0, l_x, l_y, vals,
+                                            mesh=mesh)
+    else:
+        smoothed = gaussian_2d_smooth(x0, y0, x0, y0, l_x, l_y, vals,
+                                      device=device)
     if min is not None:
         smoothed = np.maximum(smoothed, min)
     if max is not None:
@@ -140,10 +255,8 @@ def smooth_hyperparameters(result_file: str,
                            output_file: str = None,
                            model_name: str = None,
                            save_config_file: bool = True,
-                           # accepted so that configs written for the JAX
-                           # package load; one device has one smoother
                            method: str = "auto",
-                           device=None):
+                           device=None, mesh=None):
     """Smooth hyperparameter fields and write `*{table_suffix}` tables
     (reference: postprocessing.py:96).
 
@@ -152,13 +265,24 @@ def smooth_hyperparameters(result_file: str,
     passes another): clamped to [min, max] and Gaussian-smoothed with
     lengthscales (l_x, l_y). Unsmoothed parameter tables are copied under the
     new suffix. Optionally writes a follow-up prediction config
-    (optimise=False, load_params pointing at the smoothed tables). Every
-    `method` gives the dense one-device smoother.
+    (optimise=False, load_params pointing at the smoothed tables).
+
+    `method` chooses the smoother as the JAX package does
+    (gpsat_tpu/postprocessing.py:263-272): "tiled" the tiled smoother over
+    `mesh`, "auto" the tiled one where the mesh has more than one device and
+    the slice at least 4096 experts, anything else the dense one. `mesh`
+    (parallel/mesh.Mesh) defaults to every card on a CUDA `device`, and to
+    `device` alone otherwise.
     """
     import pandas as pd
     from gpsat_tpu_torch.local_experts import get_results_from_h5file
+    from gpsat_tpu_torch.parallel.mesh import Mesh, get_mesh
     from gpsat_tpu_torch.store import ResultsStore
 
+    if mesh is None and method in ("auto", "tiled"):
+        dev = resolve_device(device)
+        mesh = get_mesh() if dev.type == "cuda" else Mesh([dev])
+    n_dev = 1 if mesh is None else mesh.size
     xy_dims = list(xy_dims)
     smooth_config_dict = {
         k: (v if isinstance(v, SmoothingConfig) else SmoothingConfig(**v))
@@ -203,13 +327,15 @@ def smooth_hyperparameters(result_file: str,
                 row_df = row.to_frame().T.merge(df, on=other_dims, how="inner")
             else:
                 row_df = df.copy()
+            use_tiled = method == "tiled" or (
+                method == "auto" and n_dev > 1 and len(row_df) >= 4096)
             row_df[hp] = smooth_field(
                 row_df[xy_dims[0]].values.astype(float),
                 row_df[xy_dims[1]].values.astype(float),
                 row_df[hp].values.astype(float), cfg["l_x"], cfg["l_y"],
                 min=_resolve_component_limit(cfg.get("min"), row, dim_cols),
                 max=_resolve_component_limit(cfg.get("max"), row, dim_cols),
-                device=device)
+                device=device, mesh=mesh if use_tiled else None)
 
             tmp = row_df[[hp] + xy_dims].copy(True).dropna()
             for od in other_dims:

@@ -322,3 +322,97 @@ def test_engine_dtype_stays_put(dtype):
     out = eng.fit_predict_many(X, y, mask, Xs=Xs, slots=2)
     assert out["preds"]["f*"].shape == (6, 3)
     assert np.isfinite(out["preds"]["f*"]).all()
+
+
+# ---------------------------------------------------------------------------
+# the cross-check engine (batched_lbfgs(engine="optax"))
+# ---------------------------------------------------------------------------
+
+def _quadratics(B=6, P=4, seed=0):
+    """Convex quadratics 0.5 (x - c)^T A (x - c) + d, A SPD, per expert."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((B, P, P))
+    A = M @ M.transpose(0, 2, 1) + 0.5 * np.eye(P)
+    return (rng.standard_normal((B, P)),
+            (A, rng.standard_normal((B, P)), rng.standard_normal(B)))
+
+
+def _jax_quadratic(x, A, c, d):
+    r = x - c
+    return 0.5 * r @ A @ r + d
+
+
+def _torch_quadratic(x, A, c, d):
+    r = x - c
+    return 0.5 * torch.einsum("bi,bij,bj->b", r, A, r) + d
+
+
+def _gpr_problems(E=8, N=30, D=3, seed=3):
+    """E GPR NLMLs in both packages' batched_lbfgs args."""
+    X, y, mask, _ = workload(E, N, 1, D, seed)
+    lo, hi = np.full((E, D), 0.01), np.full((E, D), 50.0)
+    jbij = {"lengthscales": JaxSigmoid(jnp.asarray(lo), jnp.asarray(hi)),
+            "kernel_variance": JaxSoftplus(jnp.zeros(E)),
+            "likelihood_variance": JaxSigmoid(jnp.full(E, 1e-5),
+                                              jnp.full(E, 1.0))}
+    t = torch.as_tensor
+    tbij = {"lengthscales": Sigmoid(t(lo), t(hi)),
+            "kernel_variance": Softplus(torch.zeros(E, dtype=torch.float64)),
+            "likelihood_variance": Sigmoid(t(np.full(E, 1e-5)),
+                                           t(np.full(E, 1.0)))}
+    u0 = np.random.default_rng(seed).standard_normal((E, D + 2)) * 0.3
+    return u0, (X, y, mask), jbij, tbij
+
+
+@pytest.mark.parametrize("problem", ["quadratics", "gpr"])
+def test_optax_engine_reaches_the_jax_optax_optimum(problem):
+    """engine="optax": one minimisation per expert (torch.optim.LBFGS with
+    its strong-Wolfe search here, optax's zoom search in the JAX package:
+    the steps differ, the optimum does not). Run to the tests' tight
+    stopping rule (gtol 1e-9 on the quadratics, 1e-8 on the NLMLs, f-change
+    1e-16), x agrees to 1e-6, f to 1e-9 relative, and every expert
+    converges in both."""
+    if problem == "quadratics":
+        x0, args = _quadratics()
+        jfun, tfun = _jax_quadratic, _torch_quadratic
+        jargs = tuple(jnp.asarray(a) for a in args)
+        targs = tuple(torch.as_tensor(a) for a in args)
+        opts = dict(gtol=1e-9, ftol=1e-16)
+    else:
+        x0, data, jbij, tbij = _gpr_problems()
+        jfun, _ = jax_objective("Matern32", NAMES, 3)
+        tfun, _ = make_gpr_objective("Matern32", NAMES, 3)
+        jargs = tuple(jnp.asarray(a) for a in data) + (jbij, {})
+        targs = tuple(torch.as_tensor(a) for a in data) + (tbij, {})
+        opts = dict(gtol=1e-8, ftol=1e-16, max_iter=500)
+    want = jlbfgs.batched_lbfgs(jfun, jnp.asarray(x0), jargs,
+                                engine="optax", **opts)
+    got = tlbfgs.batched_lbfgs(tfun, torch.as_tensor(x0), targs,
+                               engine="optax", **opts)
+    assert got.x.dtype == torch.float64 and got.x.shape == x0.shape
+    np.testing.assert_array_equal(got.converged.numpy(),
+                                  np.asarray(want.converged))
+    assert got.converged.all()
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(got.fun.numpy(), np.asarray(want.fun),
+                               rtol=1e-9)
+    assert (got.iterations.numpy() > 0).all()
+
+
+def test_optax_engine_keeps_the_best_finite_point():
+    """An objective that turns NaN past x = 1: the line search backs off
+    from the NaN trials and the engine reports the best finite point (at
+    the edge for the expert whose optimum lies beyond it)."""
+    x0 = torch.tensor([[0.0], [0.0]], dtype=torch.float64)
+    c = torch.tensor([[3.0], [-0.5]], dtype=torch.float64)
+
+    def fun(x, c):
+        f = ((x - c) ** 2).sum(dim=1)
+        return torch.where(x[:, 0] > 1.0, torch.full_like(f, torch.nan), f)
+    res = tlbfgs.batched_lbfgs(fun, x0, (c,), engine="optax", gtol=1e-9)
+    assert torch.isfinite(res.fun).all() and (res.x[:, 0] <= 1.0).all()
+    assert abs(float(res.x[0, 0]) - 1.0) < 1e-6
+    assert abs(float(res.x[1, 0]) + 0.5) < 1e-6
+    with pytest.raises(ValueError, match="engine"):
+        tlbfgs.batched_lbfgs(fun, x0, (c,), engine="scipy")

@@ -18,10 +18,12 @@ from gpsat_tpu import utils as jax_utils
 from gpsat_tpu.dataprepper import DataPrep as JaxDataPrep
 from gpsat_tpu.local_experts import LocalExpertOI as JaxLocalExpertOI
 from gpsat_tpu.local_experts import get_results_from_h5file as jax_results
+from gpsat_tpu.parallel import mesh as jax_mesh
 from gpsat_tpu_torch import postprocessing as pp
 from gpsat_tpu_torch import utils
 from gpsat_tpu_torch.local_experts import LocalExpertOI
 from gpsat_tpu_torch.local_experts import get_results_from_h5file
+from gpsat_tpu_torch.parallel.mesh import get_mesh
 
 torch.set_num_threads(1)
 
@@ -316,6 +318,129 @@ def test_smoothed_repredict_tracks_truth(smoothed):
     truth = truth_field(merged["pred_loc_x"].values,
                         merged["pred_loc_y"].values)
     assert np.sqrt(np.mean((merged["f*"].values - truth) ** 2)) < 0.08
+
+
+# ---------------------------------------------------------------------------
+# the multi-device smoothers: the port's over an n-shard CPU mesh against the
+# JAX package's over n of its 8 CPU devices (tests/conftest.py)
+# ---------------------------------------------------------------------------
+
+def meshes(n):
+    return (get_mesh(devices=["cpu"] * n), jax_mesh.get_mesh(n_devices=n))
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_sharded_smoother_matches_jax(n):
+    """103 outputs (not a mesh multiple), NaN sources: the JAX package's
+    sharded smoother at SMOOTH_TOL, the dense one at the JAX test's atol
+    1e-10."""
+    rng = np.random.default_rng(5)
+    x, y = rng.uniform(-5, 5, 103), rng.uniform(-5, 5, 103)
+    vals = rng.standard_normal(103)
+    vals[::11] = np.nan
+    mesh, jmesh = meshes(n)
+    got = pp.gaussian_2d_smooth_sharded(x, y, x, y, 2.0, 1.5, vals, mesh=mesh)
+    want = jax_pp.gaussian_2d_smooth_sharded(x, y, x, y, 2.0, 1.5, vals,
+                                             mesh=jmesh)
+    assert got.shape == (103,)
+    np.testing.assert_allclose(got, want, rtol=SMOOTH_TOL, equal_nan=True)
+    dense = pp.gaussian_2d_smooth(x, y, x, y, 2.0, 1.5, vals, device="cpu")
+    np.testing.assert_allclose(got, dense, atol=1e-10, equal_nan=True)
+
+
+def tiled_cases():
+    rng = np.random.default_rng(3)
+    x, y = rng.uniform(-100, 100, 500), rng.uniform(-100, 100, 500)
+    vals = np.sin(x / 30) + 0.1 * rng.standard_normal(500)
+    vals[::37] = np.nan                      # NaN sources are skipped
+    rng = np.random.default_rng(4)
+    xs, ys = rng.uniform(-50, 50, 300), rng.uniform(-50, 50, 300)
+    x0, y0 = rng.uniform(-40, 40, 97), rng.uniform(-40, 40, 97)
+    return {"nan_sources": ((x, y, x, y, 5.0, 7.0, vals)),
+            "distinct_outputs": (x0, y0, xs, ys, 4.0, 4.0, np.cos(ys / 20)),
+            "tiny_fallback": (x0[:5], y0[:5], xs, ys, 4.0, 4.0,
+                              np.cos(ys / 20))}
+
+
+@pytest.mark.parametrize("n", [2, 8])
+@pytest.mark.parametrize("case", ["nan_sources", "distinct_outputs",
+                                  "tiny_fallback"])
+def test_tiled_smoother_matches_jax(case, n):
+    """The JAX package's tiled smoother (the same strips and halos) at
+    SMOOTH_TOL, and the dense one at the JAX tests' rtol 1e-7, atol 1e-9
+    (truncation beyond 6 sigma; the tiny case is the dense fallback)."""
+    args = tiled_cases()[case]
+    mesh, jmesh = meshes(n)
+    got = pp.gaussian_2d_smooth_tiled(*args, mesh=mesh)
+    want = jax_pp.gaussian_2d_smooth_tiled(*args, mesh=jmesh)
+    np.testing.assert_allclose(got, want, rtol=SMOOTH_TOL, equal_nan=True)
+    dense = pp.gaussian_2d_smooth(*args, device="cpu")
+    np.testing.assert_allclose(got, dense, rtol=1e-7, atol=1e-9)
+    if len(args[0]) < 2 * n:             # fewer than two outputs a shard
+        np.testing.assert_array_equal(got, dense)
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_smooth_hyperparameters_tiled_matches_jax(smoothed, n, tmp_path):
+    """method="tiled" on the store of the `smoothed` fixture: the JAX
+    package's run (its mesh, 8 CPU devices: nine experts fall back to the
+    dense smoother) against the port's over an n-shard CPU mesh (two shards
+    split the nine experts into strips), every table at SMOOTH_TOL."""
+    tables = {}
+    for pkg in ("jax", "torch"):
+        store = str(tmp_path / f"{pkg}.h5")
+        shutil.copy(smoothed["jax"]["store"], store)
+        kw = dict(SMOOTHING, result_file=store, output_file=store,
+                  table_suffix="_TILED", save_config_file=False,
+                  method="tiled")
+        if pkg == "jax":
+            jax_pp.smooth_hyperparameters(**kw)
+        else:
+            pp.smooth_hyperparameters(**kw, device="cpu",
+                                      mesh=meshes(n)[0])
+        tables[pkg] = read_tables(pkg, store)
+    for hp in SMOOTHING["params_to_smooth"]:
+        got = by_keys(tables["torch"][f"{hp}_TILED"])
+        want = by_keys(tables["jax"][f"{hp}_TILED"])
+        assert len(got) == len(want) == 9 * (3 if hp == "lengthscales"
+                                             else 1)
+        for col in want.columns:
+            np.testing.assert_allclose(got[col].values, want[col].values,
+                                       rtol=SMOOTH_TOL, err_msg=col)
+
+
+def test_auto_method_takes_the_tiled_smoother_from_4096_experts(
+        monkeypatch, tmp_path):
+    """smooth_hyperparameters' choice (the JAX package's): "auto" tiles a
+    slice of at least 4096 experts over a mesh of more than one device and
+    smooths densely otherwise, "tiled" always tiles, any other method is
+    dense."""
+    from gpsat_tpu_torch import local_experts
+    calls = []
+
+    def spy(x0, y0, vals, *a, mesh=None, **k):
+        calls.append(mesh)
+        return np.asarray(vals, dtype=float)
+    monkeypatch.setattr(pp, "smooth_field", spy)
+    rng = np.random.default_rng(0)
+    two, one = get_mesh(devices=["cpu"] * 2), get_mesh(devices=["cpu"])
+    for E in (4095, 4096):
+        df = pd.DataFrame({"x": rng.uniform(size=E), "y": rng.uniform(size=E),
+                           "kv": rng.uniform(size=E)})
+        monkeypatch.setattr(local_experts, "get_results_from_h5file",
+                            lambda *a, df=df, **k: (
+                                {"kv": df},
+                                [{"data": {"coords_col": ["x", "y"]}}]))
+        for method, m in (("auto", two), ("auto", one), ("tiled", two),
+                          ("dense", two)):
+            calls.clear()
+            pp.smooth_hyperparameters(
+                str(tmp_path / "in.h5"), ["kv"], {"kv": {"l_x": 1, "l_y": 1}},
+                output_file=str(tmp_path / f"{E}{method}{m.size}.h5"),
+                save_config_file=False, method=method, device="cpu", mesh=m)
+            tiled = method == "tiled" or (method == "auto" and m.size > 1
+                                          and E >= 4096)
+            assert calls == [m if tiled else None], (E, method, m.size)
 
 
 # ---------------------------------------------------------------------------

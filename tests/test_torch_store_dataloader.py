@@ -569,11 +569,18 @@ GUARD = textwrap.dedent("""
     assert np.isfinite(out["objective"]).all()
     for i, p in enumerate(ps):
         assert np.isfinite(out["preds"]["f*"][i, :p]).all()
+    # the same levels split over a two-shard CPU mesh: the same result
+    from gpsat_tpu_torch.parallel.mesh import get_mesh
+    meshed = le.execute_buckets(engine, X, obs, pred, coords_scale=[2.0, 2.0],
+                                obs_mean="local",
+                                mesh=get_mesh(devices=["cpu"] * 2))
+    assert np.array_equal(meshed["objective"], out["objective"])
     # the other model families, through the same function
     import importlib
     for m in ("ops.svgp", "ops.vff", "ops.asvgp", "models.svgp",
               "models.vff", "models.asvgp", "ops.ski", "ops.ski_structured",
-              "ops.multioutput", "models.kiss_gpr", "models.multioutput"):
+              "ops.multioutput", "models.kiss_gpr", "models.multioutput",
+              "parallel.mesh", "parallel.multihost", "entry_points"):
         importlib.import_module("gpsat_tpu_torch." + m)
     from gpsat_tpu_torch.models import get_model
     locs = np.array([x.mean(axis=0) for x in X])
@@ -601,10 +608,11 @@ GUARD = textwrap.dedent("""
 def test_execute_buckets_runs_without_pandas_h5py_or_jax():
     """The card's machine has no pandas and no h5py, and the port uses no
     jax: importing gpsat_tpu_torch.local_experts and running execute_buckets
-    (CPU, f64; GPRModel, then SVGPModel, VFFModel and ASVGPModel, whose
-    modules are imported too, as are KISS-GP's and the multioutput models')
-    must work with the three blocked, and load no module of the JAX
-    package."""
+    (CPU, f64; GPRModel, alone and over a two-shard mesh, then SVGPModel,
+    VFFModel and ASVGPModel, whose modules are imported too, as are
+    KISS-GP's, the multioutput models', the mesh's, multihost's and the
+    entry points') must work with the three blocked, and load no module of
+    the JAX package."""
     env = {**os.environ, "PYTHONPATH": REPO}
     res = subprocess.run([sys.executable, "-c", GUARD], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
