@@ -76,11 +76,19 @@ Phases (any failure exits non-zero; nothing is caught):
      shards' streams run at once; phase 7's fields through the sharded and
      the tiled smoothers against its dense result; entry_points.
      dryrun_multichip over the mesh; batched_lbfgs(engine="optax") on 8
-     bench gpr experts against the custom engine's optimum.
+     bench gpr experts against the custom engine's optimum;
+ 11. the application drivers (gpsat_tpu_torch.examples) on the card: the
+     sea-ice driver's device half from its numpy cores (SGPRModel, M=300,
+     route "hybrid", 50 km coords_scale, the driver's constraints) at its
+     default 400 km expert spacing and at 50 km, each fit and its smoothed
+     re-predict with every expert against f64 at its parameters, four
+     experts against the CPU's f64 run, and the merged RMSE against the
+     truth; then numerical_stability_check.main on the card (the vg and
+     predict kernels in its f32 cases, each jittered f32 case against f64).
 The line before the last is a JSON object with one entry per kernel (its
-launches in phases 3-4, in phase 6's GPR and SGPR runs, in phase 7 and in
-phase 10's runs); the last line is {"ok": true, "device": {...}}. Imports
-nothing of JAX or gpsat_tpu.
+launches in phases 3-4, in phase 6's GPR and SGPR runs, in phase 7, in
+phase 10's runs and in phase 11); the last line is {"ok": true, "device":
+{...}}. Imports nothing of JAX or gpsat_tpu.
 """
 
 import json
@@ -1435,33 +1443,54 @@ def phase_pipeline_sgpr(cuda_gpr, inp):
     return {"launches": launches, "sub": sub, "out": out}
 
 
-def hold_sgpr_f64(name, sub, out, engine):
+def hold_sgpr_f64(name, sub, out, engine, coords_scale=None, tol=PRED_TOL,
+                  plain_ratio=None):
     """Every expert of an SGPR run against ops/sgpr.predict in f64 on the
     card at its fitted parameters and inducing points, in chunks of 32,
-    each key at PRED_TOL."""
+    each key at `tol` (coordinates scaled by ARCTIC_MODEL's coords_scale
+    unless given another). With `plain_ratio` ({key: ratio}), the same call
+    in f32 (the plain version of the route's prediction) is held against
+    f64 too, and each key's largest abs error must be within its ratio
+    times the plain version's. Returns the largest abs error."""
     from gpsat_tpu_torch.ops import sgpr as sgpr_math
     valid = pred_valid(out)
     width = valid.shape[1]
-    ref = {k: np.full_like(out["preds"][k], np.nan) for k in PRED_TOL}
+    dts = (torch.float64,) if plain_ratio is None else \
+        (torch.float64, torch.float32)
+    ref = {dt: {k: np.full_like(out["preds"][k], np.nan) for k in PRED_TOL}
+           for dt in dts}
     for bk in buckets_of(sub):
-        X, y, mask, Xs, *_ = assembled(sub, bk)
+        X, y, mask, Xs, *_ = assembled(sub, bk, coords_scale)
         for s in range(0, len(bk["indices"]), 32):
             ids = bk["indices"][s:s + 32]
             rows = slice(s, s + len(ids))
-
-            def t(a):
-                return torch.tensor(a[rows], device="cuda")
             Z = out["params"]["inducing_points"][ids]
-            prm = {k: torch.tensor(out["params"][k][ids], dtype=torch.float64,
-                                   device="cuda")
-                   for k in engine.HYPER_NAMES}
-            pr = sgpr_math.predict(
-                prm, t(X), t(y), t(mask), torch.tensor(Z, device="cuda"),
-                torch.tensor(np.isfinite(Z[..., 0]), device="cuda"), t(Xs),
-                kernel=engine.kernel, jitter=engine.jitter)
-            for k in ref:
-                ref[k][ids] = pr[k].cpu().numpy()[:, :width]
-    hold_preds(name, out["preds"], ref, valid)
+            for dt in dts:
+                def t(a):
+                    v = torch.tensor(a[rows], device="cuda")
+                    return v.to(dt) if v.is_floating_point() else v
+                prm = {k: torch.tensor(out["params"][k][ids], dtype=dt,
+                                       device="cuda")
+                       for k in engine.HYPER_NAMES}
+                pr = sgpr_math.predict(
+                    prm, t(X), t(y), t(mask),
+                    torch.tensor(Z, dtype=dt, device="cuda"),
+                    torch.tensor(np.isfinite(Z[..., 0]), device="cuda"),
+                    t(Xs), kernel=engine.kernel, jitter=engine.jitter)
+                for k in PRED_TOL:
+                    v = pr[k].cpu().numpy()[:, :width]
+                    ref[dt][k][ids, :v.shape[1]] = v
+    worst = hold_preds(name, out["preds"], ref[torch.float64], valid, tol)
+    for k, ratio in (plain_ratio or {}).items():
+        f64 = ref[torch.float64][k][valid]
+        route = float(np.abs(out["preds"][k][valid] - f64).max())
+        plain = float(np.abs(ref[torch.float32][k][valid] - f64).max())
+        print(f"  {name} {k}: the route's max_abs_err {route:.3e}, the plain "
+              f"f32 prediction's {plain:.3e}, ratio {route / plain:.2f} "
+              f"(limit {ratio})")
+        require(route <= ratio * plain, f"{name} {k}: the route's error "
+                f"{route:.3e} beyond {ratio} times the plain f32 {plain:.3e}")
+    return worst
 
 
 # configs/example_postprocessing.json: the fields it smooths, their
@@ -2612,6 +2641,219 @@ def phase_mesh(cuda_gpr, inp, fitted, sgpr, smoothed, workload,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the application drivers on the card
+# ---------------------------------------------------------------------------
+
+# the sea-ice driver's expert spacings: its default, and phase 6's north-star
+# spacing on the driver's +-1000 km grid
+SEA_ICE_SPACINGS = (400 * KM, 50 * KM)
+# experts of the 50 km run held against the same run on the CPU in f64
+SEA_ICE_SUBSET = 4
+# the card's f32 fit against the CPU's f64 fit of the same experts: two
+# optimisations that stop at different points of a flat ELBO (the
+# lengthscales at their bound; PERF.md §7, SGPR's f32 optima). On the H100
+# (4 experts; 8 in an earlier run): ELBO 1.77e-3 (1.96e-3) relative, f*
+# 7.9e-3 (6.5e-3) apart, f*_var 1.2e-4 and y_var 2.0e-4 apart (median
+# 7.9e-4 and 7.5e-3). SUBSET_TOL's f* atol of 1e-3 is beyond two f32/f64
+# optima here. Limits about three times the measured.
+SEA_ICE_SUBSET_TOL = {"f*": (1e-2, 2.5e-2), "f*_var": (1e-1, 4e-4),
+                      "y_var": (1e-1, 6e-4)}
+SEA_ICE_ELBO_RTOL = 6e-3
+# the sea-ice runs' f32 predictions against f64 at the same parameters. The
+# driver's optima put the x and y lengthscales at or near their 1000 km
+# bound (20 coords_scale units, 20 inducing spacings), where Kuu is near
+# singular in f32: on the H100 the plain f32 prediction (ops/sgpr.predict)
+# is 1.02e-4 off f64 in f*, the route's (cholinv's explicit W) 1.68e-4, and
+# f*_var 2.7e-3 relative at 400 km; at 50 km the route's f* is 3.9e-4 off
+# (plain 1.9e-4), f*_var 6.2e-3 and y_var 6.4e-4 relative. PRED_TOL's f*
+# atol of 1e-4 is out of f32's reach here: SUBSET_TOL, but y_var at a
+# tenth of its rtol (about three times the measured).
+SEA_ICE_TOL = dict(SUBSET_TOL, y_var=(2e-3, 1e-6))
+# the route's largest error against f64 over the plain f32 prediction's, in
+# the same call: measured on the H100 1.64-2.11 in f* and 2.36-3.37 in the
+# variances over the four sea-ice runs
+SEA_ICE_ROUTE_RATIO = {"f*": 3.0, "f*_var": 4.0, "y_var": 4.0}
+
+
+def sea_ice_run(cuda_gpr, sid, data, spacing):
+    """The sea-ice driver's device half at one expert spacing: the first
+    stage (SGPRModel as MODEL_CONFIG configures it, optimised) through
+    execute_buckets, its hyperparameters smoothed on the card with the
+    driver's settings, and the re-predict of every expert with
+    optimise=False at the smoothed parameters and the first stage's
+    inducing points; each run's f*, f*_var and y_var of every expert
+    against f64 at its parameters (SEA_ICE_TOL, and within
+    SEA_ICE_ROUTE_RATIO of the plain f32 version's error). Returns the
+    launches of both runs, the inputs and the first stage's result."""
+    from gpsat_tpu_torch.local_experts import execute_buckets, make_engine
+    from gpsat_tpu_torch.models.sgpr import SGPRModel
+    cfg = sid.MODEL_CONFIG
+    scale = cfg["init_params"]["coords_scale"]
+    experts = sid.expert_grid(spacing)
+    t0 = time.perf_counter()
+    X_list, obs_list, pred_list = sid.local_inputs(data, experts)
+    inp = {"X_list": X_list, "obs_list": obs_list, "pred_list": pred_list,
+           "experts": experts}
+    n = np.array([len(o) for o in obs_list])
+    print(f"sea-ice {spacing / KM:.0f} km: {len(experts)} experts, gather "
+          f"{time.perf_counter() - t0:.2f} s, N (0, 50, 100 %) "
+          f"{np.percentile(n, [0, 50, 100])}, P (0, 100 %) "
+          f"{np.percentile([len(q) for q in pred_list], [0, 100])}")
+    require(n.min() >= 3, f"an expert with {n.min()} observations")
+    engine = make_engine(SGPRModel, cfg["init_params"], cfg["constraints"],
+                         coords_dim=3)
+    require(engine.route == "hybrid" and engine.num_inducing == 300,
+            f"sea-ice engine route {engine.route} M {engine.num_inducing}")
+    launches = {}
+
+    def counted(**kw):
+        cuda_gpr.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        o = execute_buckets(engine, X_list, obs_list, pred_list,
+                            coords_scale=scale, expert_locs=experts, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = {k: v for k, v in cuda_gpr.launch_counts().items() if v}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return o, wall, got
+
+    out, wall, got = counted()
+    conv = float(np.mean(out["converged"]))
+    print(f"sea-ice {spacing / KM:.0f} km fit: {len(experts)} experts in "
+          f"{wall:.3f} s ({len(experts) / wall:.2f} experts/s), converged "
+          f"{conv:.4f}, levels (N, experts, pool iterations) "
+          f"{[(b['n_max'], b['experts'], b['pool_iterations']) for b in out['buckets']]}, "
+          f"launches {got}")
+    require(got.get("cholinv", 0) > 0, f"sea-ice fit: no cholinv: {got}")
+    require(conv >= 0.95, f"sea-ice fit converged fraction {conv}")
+    require(np.isfinite(out["objective"]).all(), "sea-ice: non-finite ELBO")
+    hold_sgpr_f64(f"sea-ice {spacing / KM:.0f} km fit vs f64", inp, out,
+                  engine, coords_scale=scale, tol=SEA_ICE_TOL,
+                  plain_ratio=SEA_ICE_ROUTE_RATIO)
+
+    t = time.perf_counter()
+    smoothed = sid.smooth_params(experts, out["params"], device="cuda")
+    torch.cuda.synchronize()
+    print(f"sea-ice {spacing / KM:.0f} km smoothing on the card: "
+          f"{time.perf_counter() - t:.4f} s")
+    for name, cfg_s in sid.SMOOTH_CONFIG.items():
+        require(np.isfinite(smoothed[name]).all(), f"smoothed {name}")
+        require(cfg_s.get("max") is None or
+                smoothed[name].max() <= cfg_s["max"], f"{name} above max")
+    overrides = dict(smoothed,
+                     inducing_points=out["params"]["inducing_points"])
+    again, wall, got = counted(overrides=overrides, optimise=False)
+    print(f"sea-ice {spacing / KM:.0f} km re-predict: {wall:.3f} s, "
+          f"launches {got}")
+    require((again["iterations"] == 0).all(), "re-predict took steps")
+    require(got.get("cholinv", 0) > 0, f"re-predict: no cholinv: {got}")
+    moved = max(float(np.max(np.abs(again["params"][k] / smoothed[k] - 1)))
+                for k in sid.SMOOTH_CONFIG)
+    print(f"  re-predict parameters against the smoothed ones (an f32 round "
+          f"trip through the bijectors): max rel {moved:.3e}")
+    hold_sgpr_f64(f"sea-ice {spacing / KM:.0f} km re-predict vs f64", inp,
+                  again, engine, coords_scale=scale, tol=SEA_ICE_TOL,
+                  plain_ratio=SEA_ICE_ROUTE_RATIO)
+    valid = pred_valid(again)
+    pred_xy = np.concatenate(pred_list)[:, :2]
+    owner = np.repeat(experts[:, :2], [len(q) for q in pred_list], axis=0)
+    rmse = sid.merged_rmse(pred_xy, owner, again["preds"]["f*"][valid],
+                           float(np.mean(np.repeat(again["f_bar"],
+                                                   valid.sum(1)))))
+    print(f"sea-ice {spacing / KM:.0f} km merged thickness RMSE against "
+          f"the truth: {rmse:.5f} m (observation noise 0.10 m; the JAX "
+          f"driver at 2 experts on the CPU: 0.0391 m)")
+    require(rmse < 0.1, f"sea-ice RMSE {rmse} not below the noise")
+    return launches, inp, out, engine
+
+
+def phase_drivers(cuda_gpr):
+    """Phase 11: (a) the sea-ice driver's device half at its default expert
+    spacing and at 50 km, from the port driver's numpy cores (6000 synthetic
+    points of seed 0 binned to 50 km, the SIC < 0.15 pseudo-observations,
+    the synthetic secondary instrument fused), with SEA_ICE_SUBSET experts
+    of the 50 km run against the same call on the CPU in f64
+    (SEA_ICE_SUBSET_TOL); (b) numerical_stability_check.main on the card: its own
+    check, the vg and predict kernels launched in its f32 cases, and each
+    jittered f32 case's f* against the f64 case's (PRED_TOL). Returns the
+    launches of the phase, {kernel: launches}."""
+    from gpsat_tpu_torch.examples import numerical_stability_check as nsc
+    from gpsat_tpu_torch.examples import sea_ice_freeboard_driver as sid
+    from gpsat_tpu_torch.local_experts import execute_buckets, make_engine
+    from gpsat_tpu_torch.models.sgpr import SGPRModel
+
+    t_phase = time.perf_counter()
+    data = sid.driver_arrays(plus_secondary=True)
+    print(f"sea-ice driver data: {len(data['z'])} training rows (binned "
+          f"observations, SIC pseudo-observations, secondary instrument)")
+    launches = {}
+    for spacing in SEA_ICE_SPACINGS:
+        got, inp, out, engine = sea_ice_run(cuda_gpr, sid, data, spacing)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    picks = pick_spread(inp, n=SEA_ICE_SUBSET, top=1)
+    cfg = sid.MODEL_CONFIG
+    cpu = make_engine(SGPRModel, cfg["init_params"], cfg["constraints"],
+                      coords_dim=3, device="cpu")
+    t0 = time.perf_counter()
+    ref = execute_buckets(cpu, *(subset(inp, picks)[k] for k in (
+        "X_list", "obs_list", "pred_list")),
+        coords_scale=cfg["init_params"]["coords_scale"],
+        expert_locs=inp["experts"][picks])
+    rel = float(np.max(np.abs(out["objective"][picks] / ref["objective"]
+                              - 1)))
+    print(f"sea-ice CPU f64 run of {len(picks)} experts (N "
+          f"{[len(inp['obs_list'][i]) for i in picks]}) in "
+          f"{time.perf_counter() - t0:.2f} s: ELBO max rel err {rel:.3e}")
+    width = ref["preds"]["f*"].shape[1]
+    got = {k: out["preds"][k][picks, :width] for k in PRED_TOL}
+    valid = pred_valid(ref)
+    for k in PRED_TOL:
+        e = np.abs(got[k] - ref["preds"][k])[valid]
+        w = np.abs(ref["preds"][k])[valid]
+        print(f"  sea-ice CPU f64 {k}: max_abs_err {e.max():.3e}, 99 % "
+              f"{np.quantile(e, 0.99):.3e}, max rel err "
+              f"{np.max(e / np.maximum(w, 1e-300)):.3e}")
+    hold_preds("sea-ice CPU f64", got, ref["preds"], valid,
+               tol=SEA_ICE_SUBSET_TOL)
+    np.testing.assert_allclose(out["objective"][picks], ref["objective"],
+                               rtol=SEA_ICE_ELBO_RTOL,
+                               err_msg="sea-ice CPU ELBO")
+
+    cuda_gpr.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cases = nsc.main(device="cuda")
+    torch.cuda.synchronize()
+    got = {k: v for k, v in cuda_gpr.launch_counts().items() if v}
+    print(f"numerical_stability_check on the card: {len(cases)} cases in "
+          f"{time.perf_counter() - t0:.2f} s, launches {got}")
+    require(got.get("nlml_vg", 0) > 0 and got.get("posterior_predict", 0) > 0,
+            f"stability check: vg or predict not launched: {got}")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    f64 = {c["jitter"]: c for c in cases if c["dtype"] == "float64"}
+    for c in cases:
+        if c["dtype"] != "float32" or c["jitter"] == 0.0:
+            continue
+        want = f64[c["jitter"]]
+        rtol, atol = PRED_TOL["f*"]
+        err = np.abs(c["preds"]["f*"] - want["preds"]["f*"])
+        print(f"  jitter {c['jitter']:.0e}: f32 NLML {c['nlml']:.5f}, f64 "
+              f"{want['nlml']:.5f}; f* max_abs_err {err.max():.3e} (rtol "
+              f"{rtol}, atol {atol})")
+        require(c["finite"] and bool(np.all(
+            err <= atol + rtol * np.abs(want["preds"]["f*"]))),
+            f"stability f32 f* at jitter {c['jitter']} off the f64 case")
+    print(f"phase 11 (drivers): {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2665,6 +2907,7 @@ def main():
     require(not launched, f"phases 8-9 launched kernels: {launched}")
     mesh_pipe = phase_mesh(cuda_gpr, arctic, fitted, sgpr_pipe, smoothed,
                            workload, bench_gpr_engine)
+    drivers = phase_drivers(cuda_gpr)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2697,7 +2940,8 @@ def main():
                "pipeline_launches": gpr_pipe.get(name, 0),
                "pipeline_sgpr_launches": sgpr_pipe["launches"].get(name, 0),
                "pipeline_smoothed_launches": smoothed_pipe.get(name, 0),
-               "pipeline_mesh_launches": mesh_pipe.get(name, 0)}
+               "pipeline_mesh_launches": mesh_pipe.get(name, 0),
+               "drivers_launches": drivers.get(name, 0)}
         for field in ("launches", "max_abs_err", "ms", "plain_ms",
                       "bound_ms", "bound_by"):
             require(row.get(field) is not None, f"{name}: no {field}")

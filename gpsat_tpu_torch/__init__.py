@@ -41,6 +41,11 @@ Layout
 - CLIs of run_examples.sh: ``read_and_store`` (step 2), ``bin_data`` (step
                                  4), ``local_expert_oi`` (steps 5 and 6,
                                  ``--device``), ``postprocessing`` (step 6).
+- ``gpsat_tpu_torch.examples`` : the application drivers of the JAX
+                                 package's ``examples/`` (the production
+                                 sea-ice driver, seasonal, cross-validation,
+                                 ...) and ``run_examples``, the seven steps
+                                 of run_examples.sh.
 - host modules (copies of the JAX package's): ``store`` (HDF5 results
                                  store, the same schema), ``dataloader``,
                                  ``dataprepper``, ``prediction_locations``,

@@ -331,6 +331,11 @@ class BatchedGPR:
             ls_n=_min_valid_size(mask if self._chunk_ctx is None
                                  else self._chunk_ctx[0], X.shape[1]))
 
+    def _restart(self, collapsed):
+        """Whether fit_predict re-runs its call from the alternative point,
+        given the experts that `collapsed`."""
+        return bool(collapsed.any())
+
     def _snapshot_state(self):
         """Engine side-state captured before a collapse-restart re-run
         (subclasses carrying per-expert state override)."""
@@ -389,7 +394,7 @@ class BatchedGPR:
             collapsed = self._collapsed(
                 params.get("kernel_variance", np.ones(B)), fval, y_var,
                 mask_np)
-            if collapsed.any():
+            if self._restart(collapsed):
                 state1 = self._snapshot_state()
                 alt = self._initial_params_batch(B, param_overrides,
                                                  y_var=y_var, scale=3.0)
@@ -429,21 +434,25 @@ class BatchedGPR:
             e = min(s + B, E)
             sharded = n_sh > 1 and (e - s) % n_sh == 0
             parts = np.array_split(np.arange(s, e), n_sh if sharded else 1)
+            chunk_mask = _np(mask[s:e]).astype(bool)
+
+            def run(k, parts=parts, s=s, sharded=sharded,
+                    chunk_mask=chunk_mask):
+                a, b = parts[k][0], parts[k][-1] + 1
+                ov = None if param_overrides is None else \
+                    {n: v[a:b] for n, v in param_overrides.items()}
+                self._chunk_ctx = (chunk_mask, a - s) if sharded else None
+                with self._on_shard(mesh if sharded else None, k):
+                    return self.fit_predict(
+                        X[a:b], y[a:b], mask[a:b],
+                        Xs=None if Xs is None else Xs[a:b],
+                        optimise=optimise, predict=predict,
+                        param_overrides=ov,
+                        expert_locs=None if expert_locs is None
+                        else expert_locs[a:b])
             try:
-                for k, rows in enumerate(parts):
-                    a, b = rows[0], rows[-1] + 1
-                    ov = None if param_overrides is None else \
-                        {n: v[a:b] for n, v in param_overrides.items()}
-                    self._chunk_ctx = (_np(mask[s:e]).astype(bool), a - s) \
-                        if sharded else None
-                    with self._on_shard(mesh if sharded else None, k):
-                        outs.append(self.fit_predict(
-                            X[a:b], y[a:b], mask[a:b],
-                            Xs=None if Xs is None else Xs[a:b],
-                            optimise=optimise, predict=predict,
-                            param_overrides=ov,
-                            expert_locs=None if expert_locs is None
-                            else expert_locs[a:b]))
+                outs.extend(self._run_shards(run, len(parts)) if sharded
+                            else [run(0)])
             finally:
                 self._chunk_ctx = None
 
@@ -461,6 +470,11 @@ class BatchedGPR:
         for k in set(outs[0]) - set(out):   # engine extras (inducing_mask, …)
             out[k] = cat(k)
         return out
+
+    def _run_shards(self, run, n):
+        """The outputs of the n shards of one sharded chunk, run(k) being
+        shard k's fit_predict, one shard after the other."""
+        return [run(k) for k in range(n)]
 
     # -- pool hooks (engines that support pooled L-BFGS override) -----------
 
@@ -1004,7 +1018,10 @@ class Adam:
 def _epoch_order(mask, seed, epoch):
     """[B, N] order of each expert's rows for one epoch of the reshuffled
     minibatch: a fresh uniform draw from a torch.Generator seeded from
-    (seed, epoch), the valid rows first. (The JAX engine draws from
+    (seed, epoch), the valid rows first. `mask` is the whole chunk's: a shard
+    of a sharded chunk takes its rows of this order, so that the sharded run
+    draws what the one-device run draws, as the JAX engine's one [B, N] draw
+    per chunk is partitioned over its mesh. (The JAX engine draws from
     jax.random; the port keeps its invariants, not its bits.)"""
     words = np.random.SeedSequence([int(seed), int(epoch)])
     gen = torch.Generator().manual_seed(int(words.generate_state(1)[0]))
@@ -1027,7 +1044,8 @@ def _svgp_fit_predict(u0, qm0, qs0, X, y, mask, Z, zmask, Xs, perm, bijectors,
                       fixed, *, kernel, free_names, d, optimise, do_predict,
                       max_iter, lr, check_every, persistence, jitter,
                       early_stop, natural_gradients, gamma, train_z, train_qm,
-                      train_qs, mb, reshuffle=False, mb_seed=0):
+                      train_qs, mb, reshuffle=False, mb_seed=0,
+                      chunk=None, run_to=0):
     """Batched SVGP: Adam on (hypers[, Z], q_mu, q_sqrt) with per-expert early
     stopping, then posterior prediction (the JAX package's
     _svgp_fit_predict, gpsat_tpu/models/batched.py:984-1153).
@@ -1040,13 +1058,21 @@ def _svgp_fit_predict(u0, qm0, qs0, X, y, mask, Z, zmask, Xs, perm, bijectors,
     - mb > 0: per-iteration minibatch of mb points per expert, a window over
       `perm` (a per-expert shuffled index cycle), data term scaled by
       N_valid / mb; with `reshuffle`, a fresh order of each expert's valid
-      points every epoch instead.
+      points every epoch instead, drawn on the chunk's whole mask and cut to
+      this call's rows when `chunk` = (chunk mask [Bc, N], first row) says
+      the call is one shard of a sharded chunk.
 
     The loop runs on the host. An expert's `done` changes only on a check
     iteration (it % check_every == 0), so `done` is read back once per check
     and the loop stops at the iteration the JAX while_loop stops at. A
     finished expert gets zero gradients but keeps its Adam state, so its
-    momentum still moves it, as in the reference.
+    momentum still moves it, as in the reference. So a shard of a sharded
+    chunk must stop where the whole chunk stops: it does not stop before
+    iteration `run_to` (see BatchedSVGP._run_shards).
+
+    Returns the parameters, the negative ELBO, converged, iterations, the
+    predictions, q_mu, q_sqrt, Z, and the iteration at which every expert
+    of this call was done (max_iter if never; 0 without optimisation).
     """
     B, N = X.shape[:2]
     dev, dt = X.device, X.dtype
@@ -1069,7 +1095,11 @@ def _svgp_fit_predict(u0, qm0, qs0, X, y, mask, Z, zmask, Xs, perm, bijectors,
             # reshuffles every pass, gpflow_models.py:1073)
             epoch = (it * mb) // N
             if epoch_order[0] != epoch:
-                epoch_order[:] = [epoch, _epoch_order(mask, mb_seed, epoch)]
+                whole = mask if chunk is None else chunk[0]
+                order = _epoch_order(whole, mb_seed, epoch)
+                if chunk is not None:
+                    order = order[chunk[1]:chunk[1] + B]
+                epoch_order[:] = [epoch, order]
             idx = _epoch_window(epoch_order[1], mask, start, mb)
         else:
             idx = perm[:, start:start + mb]                    # [B, mb]
@@ -1095,6 +1125,7 @@ def _svgp_fit_predict(u0, qm0, qs0, X, y, mask, Z, zmask, Xs, perm, bijectors,
         [] if natural_gradients else
         (["qm"] if train_qm else []) + (["qs"] if train_qs else []))
     it = 0
+    all_done_at = None
     conv = torch.zeros(B, dtype=torch.bool, device=dev)
     if optimise:
         opt = Adam(lr)
@@ -1148,7 +1179,10 @@ def _svgp_fit_predict(u0, qm0, qs0, X, y, mask, Z, zmask, Xs, perm, bijectors,
                     stop = nan_fail | ((cnt >= persistence) & early_stop)
                     done = done | stop
                     if bool(done.all()):
-                        break
+                        all_done_at = it if all_done_at is None \
+                            else all_done_at
+                        if it >= run_to:
+                            break
         conv = done & torch.isfinite(vals)
 
         if natural_gradients and (train_qm or train_qs):
@@ -1179,7 +1213,7 @@ def _svgp_fit_predict(u0, qm0, qs0, X, y, mask, Z, zmask, Xs, perm, bijectors,
     # the *negative* ELBO, so that the base class's restart logic (lower is
     # better) holds; BatchedSVGP flips the sign on output
     return (params, -vals, conv, iters, preds, theta["qm"], theta["qs"],
-            theta["z"])
+            theta["z"], it if all_done_at is None else all_done_at)
 
 
 class BatchedSVGP(BatchedSGPR):
@@ -1218,6 +1252,9 @@ class BatchedSVGP(BatchedSGPR):
         self.train_qs = "inducing_chol" not in fixed
         if "inducing_points" in fixed:
             self.train_inducing_points = False
+        # while a shard of a sharded chunk runs: the chunk's decisions it
+        # takes (run_to, restart) and what its run saw (see _run_shards)
+        self._chunk_stop = None
         super().__init__(coords_dim, num_inducing_points=num_inducing_points,
                          optim_kwargs=optim_kwargs, **kwargs)
 
@@ -1307,7 +1344,14 @@ class BatchedSVGP(BatchedSGPR):
 
     def _call_program(self, u0, X, y, mask, Xs_in, bij_b, fixed, optimise,
                       do_predict, compute_fval=True):
-        (params, fval, conv, iters, preds, qm, qs, z) = _svgp_fit_predict(
+        stop = self._chunk_stop
+        # the iteration before which this call's loop does not stop: the
+        # chunk's stop, once known, under a sharded chunk
+        call = 0 if stop is None else len(stop["calls"])
+        run_to = 0 if stop is None or call >= len(stop["run_to"]) \
+            else stop["run_to"][call]
+        (params, fval, conv, iters, preds, qm, qs, z,
+         all_done_at) = _svgp_fit_predict(
             u0, self._tensor(self._qm0), self._tensor(self._qs0), X, y,
             self._tensor(mask, torch.bool), self._tensor(self._Z),
             self._tensor(self._zmask, torch.bool), Xs_in,
@@ -1320,11 +1364,62 @@ class BatchedSVGP(BatchedSGPR):
             natural_gradients=self.natural_gradients, gamma=self.gamma,
             train_z=self.train_inducing_points, train_qm=self.train_qm,
             train_qs=self.train_qs, mb=self._mb,
-            reshuffle=self.minibatch_reshuffle, mb_seed=self.minibatch_seed)
+            reshuffle=self.minibatch_reshuffle, mb_seed=self.minibatch_seed,
+            chunk=None if self._chunk_ctx is None else
+            (self._tensor(self._chunk_ctx[0], torch.bool),
+             self._chunk_ctx[1]),
+            run_to=run_to)
+        if stop is not None:
+            stop["calls"].append((all_done_at, int(iters[0])))
         self._qm_final = _np(qm).copy()
         self._qs_final = _np(qs).copy()
         self._Z_final = _np(z).copy()
         return params, fval, conv, iters, preds
+
+    def _restart(self, collapsed):
+        stop = self._chunk_stop
+        if stop is None:
+            return super()._restart(collapsed)
+        stop["collapsed"] = bool(collapsed.any())
+        return stop["collapsed"] if stop["restart"] is None \
+            else stop["restart"]
+
+    def _run_shards(self, run, n):
+        """The shards of a sharded chunk, each under the decisions that the
+        one-device run takes for the whole chunk: it stops a call's Adam
+        loop only when every expert of the chunk is done (until then the
+        finished experts move on their momentum), and restarts the whole
+        chunk when one of its experts collapsed. The shards run one after
+        the other, so those decisions are learnt from their runs: a shard
+        runs again until it ran each call to the chunk's stopping iteration
+        (the latest of the shards' own) and took the chunk's restart. That
+        takes at most four rounds (first stop, restart, second stop), and a
+        second run only of the shards that disagree."""
+        outs, ran = [None] * n, [None] * n
+        decided = {"run_to": [], "restart": None}
+        todo = range(n)
+        for _ in range(5):
+            for k in todo:
+                # calls: (all done at, stopped at) of each fit_predict call
+                self._chunk_stop = dict(decided, calls=[], collapsed=False)
+                try:
+                    outs[k] = run(k)
+                finally:
+                    ran[k], self._chunk_stop = self._chunk_stop, None
+            n_calls = max(len(r["calls"]) for r in ran)
+            decided = {
+                "run_to": [max(r["calls"][c][0] for r in ran
+                               if len(r["calls"]) > c)
+                           for c in range(n_calls)],
+                "restart": any(r["collapsed"] for r in ran)}
+            # the stops of the calls of a shard in agreement
+            want = decided["run_to"][:1 + decided["restart"]]
+            todo = [k for k in range(n)
+                    if len(want) < 1 + decided["restart"]
+                    or [e for _, e in ran[k]["calls"]] != want]
+            if not todo:
+                return outs
+        raise RuntimeError("the shards of a chunk did not agree on its stop")
 
 
 # ---------------------------------------------------------------------------

@@ -375,3 +375,176 @@ def test_run_use_mesh_matches_jax_store(tmp_path, monkeypatch):
         store_path=str(tmp_path / "no_mesh.h5"), optimise=True,
         check_config_compatible=False, verbose=False, use_mesh=False)
     assert taken[-1] is None and len(meshes) == 1
+
+
+# ---------------------------------------------------------------------------
+# the reshuffled minibatch of SVGP under a sharded chunk
+# ---------------------------------------------------------------------------
+
+RESHUFFLE_OPTIM = {
+    "max_iter": 30, "early_stop": False, "natural_gradients": True,
+    "gamma": 0.3, "learning_rate": 5e-2, "minibatch_size": 16,
+    "minibatch_reshuffle": True, "minibatch_seed": 5}
+# early stopping at a persistence at which the two shards' own experts are
+# all done at different iterations (measured: the first shard's at 56, the
+# chunk's at 71), the whole chunk done before max_iter
+EARLY_STOP_OPTIM = dict(RESHUFFLE_OPTIM, max_iter=300, early_stop=True,
+                        persistence=10, check_every=5)
+
+
+def reshuffle_kwargs(optim):
+    return dict(coords_dim=2, num_inducing_points=8,
+                optim_kwargs=dict(optim))
+
+
+def reshuffle_workload():
+    """E=8 experts of N=40, mb=16 < N, ragged in both shards' halves."""
+    X, y, mask, Xs = vff_workload(8)
+    mask[2, 25:] = False
+    mask[5, 12:] = False
+    mask[6, 33:] = False
+    y = np.where(mask, y, 0.0)
+    return X, y, mask, Xs
+
+
+def jax_epoch_order(mask, seed, epoch):
+    """The JAX engine's per-epoch draw (gpsat_tpu/models/batched.py:1033-
+    1036) as an order of the rows of `mask`: jax.random.uniform under
+    fold_in(PRNGKey(seed), epoch), valid rows first."""
+    import jax
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), epoch)
+    r = np.asarray(jax.random.uniform(key, tuple(mask.shape),
+                                      dtype=jnp.float64))
+    r = np.where(mask.cpu().numpy(), r, 2.0)
+    return torch.as_tensor(np.argsort(r, axis=1, kind="stable"))
+
+
+def spy_svgp_runs(monkeypatch):
+    """Record every _svgp_fit_predict call (its width, run_to and the
+    iteration at which its experts were all done) and the windows of each
+    call (order, mask, start, rows)."""
+    runs = []
+    window, fit = tbatched._epoch_window, tbatched._svgp_fit_predict
+
+    def spy_window(order, m, start, mb):
+        idx = window(order, m, start, mb)
+        runs[-1]["windows"].append((order.clone(), m.clone(), start, idx))
+        return idx
+
+    def spy_fit(*args, **kw):
+        runs.append({"B": args[0].shape[0], "run_to": kw.get("run_to", 0),
+                     "windows": []})
+        out = fit(*args, **kw)
+        runs[-1]["all_done_at"] = out[-1]
+        return out
+    monkeypatch.setattr(tbatched, "_epoch_window", spy_window)
+    monkeypatch.setattr(tbatched, "_svgp_fit_predict", spy_fit)
+    return runs
+
+
+def assert_bitwise(got, one):
+    for k in ("objective", "converged", "iterations"):
+        np.testing.assert_array_equal(got[k], one[k], err_msg=k)
+    for part in ("params", "preds"):
+        for k, v in one[part].items():
+            np.testing.assert_array_equal(got[part][k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("optim", [RESHUFFLE_OPTIM, EARLY_STOP_OPTIM],
+                         ids=["fixed_budget", "early_stop"])
+def test_svgp_reshuffle_under_mesh_equals_one_device(monkeypatch, optim):
+    """A two-shard CPU mesh runs BatchedSVGP with minibatch_reshuffle: every
+    expert equals the one-device run bit for bit (each shard takes its rows
+    of the chunk's epoch order and, with early stopping, runs until the
+    whole chunk is done); the replay of the windows of each shard's final
+    run against the one-device run's; and, with the JAX engine's draws, the
+    JAX engine's run under its two-device mesh at the SVGP mesh tolerance
+    (assert_same_sweep)."""
+    X, y, mask, Xs = reshuffle_workload()
+    el = 0.9 * X.mean(axis=1)
+    kw = reshuffle_kwargs(optim)
+    runs = spy_svgp_runs(monkeypatch)
+    one = tbatched.BatchedSVGP(device="cpu", **kw) \
+        .fit_predict_many(X, y, mask, Xs=Xs, expert_locs=el)
+    assert len(runs) == 1 and runs[0]["B"] == 8
+    got = tbatched.BatchedSVGP(device="cpu", **kw) \
+        .fit_predict_many(X, y, mask, Xs=Xs, expert_locs=el,
+                          mesh=cpu_mesh(2))
+    assert_bitwise(got, one)
+
+    # the shards' runs: both shards once, and under early stopping the
+    # first again to the chunk's stop, where its own experts were done
+    # sooner
+    shards = runs[1:]
+    assert [r["B"] for r in shards[:2]] == [4, 4]
+    stop = int(one["iterations"][0])
+    if optim["early_stop"]:
+        assert stop < optim["max_iter"]
+        assert shards[0]["all_done_at"] < shards[1]["all_done_at"] == stop
+        assert len(shards) == 3 and shards[2]["run_to"] == stop
+        final = (shards[2], shards[1])
+    else:
+        assert len(shards) == 2
+        final = (shards[0], shards[1])
+
+    # replay: each shard's final run took the one-device run's windows'
+    # rows, iteration by iteration; every window all-valid
+    ref = runs[0]["windows"]
+    assert len(ref) == stop
+    for order, m, start, idx in ref:
+        assert m.shape == (8, 40) and torch.equal(m, torch.as_tensor(mask))
+        nv = m.sum(1)
+        for b in range(8):
+            assert sorted(order[b, :nv[b]].tolist()) == \
+                np.flatnonzero(mask[b]).tolist()
+        assert torch.take_along_dim(m, idx, dim=1).all()
+    for rows, run in zip((slice(0, 4), slice(4, 8)), final):
+        assert len(run["windows"]) == stop
+        for (order, m, start, idx), s_win in zip(ref, run["windows"]):
+            s_order, s_m, s_start, s_idx = s_win
+            assert s_start == start and torch.equal(s_m, m[rows])
+            assert torch.equal(s_order, order[rows])
+            assert torch.equal(s_idx, idx[rows])
+
+    # the JAX engine's sharded run, given its draws
+    monkeypatch.undo()
+    monkeypatch.setattr(tbatched, "_epoch_order", jax_epoch_order)
+    jeng = jbatched.BatchedSVGP(dtype=jnp.float64, **kw)
+    jeng._expert_locs_scaled = el
+    want = jeng.fit_predict_many(X, y, mask, Xs=Xs,
+                                 mesh=jmesh.get_mesh(n_devices=2))
+    got = tbatched.BatchedSVGP(device="cpu", **kw) \
+        .fit_predict_many(X, y, mask, Xs=Xs, expert_locs=el,
+                          mesh=cpu_mesh(2))
+    assert_same_sweep(got, want)
+
+
+def test_svgp_collapse_restart_under_mesh_equals_one_device(monkeypatch):
+    """The one-device run re-runs the whole chunk from the alternative point
+    when one expert collapsed; under a two-shard mesh the shard without
+    that expert re-runs as well, and both run the second call to the
+    chunk's stop: every expert equals the one-device run bit for bit.
+    Expert 1 (first shard) is taken as collapsed in every run."""
+    X, y, mask, Xs = reshuffle_workload()
+    el = 0.9 * X.mean(axis=1)
+    kw = reshuffle_kwargs(EARLY_STOP_OPTIM)
+    flagged = tbatched.BatchedGPR._signal_variance(y, mask)[1]
+    monkeypatch.setattr(
+        tbatched.BatchedSVGP, "_collapsed",
+        lambda self, kv, fval, y_var, mask_np: y_var == flagged)
+    runs = spy_svgp_runs(monkeypatch)
+    one = tbatched.BatchedSVGP(device="cpu", **kw) \
+        .fit_predict_many(X, y, mask, Xs=Xs, expert_locs=el)
+    assert [r["B"] for r in runs] == [8, 8]
+    n_one = len(runs)
+    got = tbatched.BatchedSVGP(device="cpu", **kw) \
+        .fit_predict_many(X, y, mask, Xs=Xs, expert_locs=el,
+                          mesh=cpu_mesh(2))
+    assert_bitwise(got, one)
+    # each shard's final run: two calls, each to the one-device call's stop
+    stops = [len(r["windows"]) for r in runs[:n_one]]
+    shards = runs[n_one:]
+    for rows in ((0, 4), (4, 8)):
+        mine = [r for r in shards if torch.equal(
+            r["windows"][0][1], torch.as_tensor(mask[rows[0]:rows[1]]))]
+        assert [len(r["windows"]) for r in mine[-2:]] == stops
