@@ -38,6 +38,11 @@ Layout
                                  the card unless told otherwise; its numpy
                                  core ``smooth_field`` needs neither pandas
                                  nor h5py) and prediction gluing.
+- ``gpsat_tpu_torch.tracing`` : spans and counters of the host work
+                                 (levels, the L-BFGS pool, the fill, the
+                                 chunked path, device reads), kept in memory
+                                 while a torch profiler runs or ``enable()``
+                                 is in force.
 - CLIs of run_examples.sh: ``read_and_store`` (step 2), ``bin_data`` (step
                                  4), ``local_expert_oi`` (steps 5 and 6,
                                  ``--device``), ``postprocessing`` (step 6).
@@ -50,8 +55,8 @@ Layout
                                  store, the same schema), ``dataloader``,
                                  ``dataprepper``, ``prediction_locations``,
                                  ``config_dataclasses``, ``utils``,
-                                 ``decorators``, ``ncio`` (netCDF without
-                                 xarray), ``datetime_utils``, ``satdata``,
+                                 ``ncio`` (netCDF without xarray),
+                                 ``datetime_utils``, ``satdata``,
                                  ``plot_utils``; ``native``, the C++/OpenMP
                                  host helper built with g++ at first use.
 - ``gpsat_tpu_torch.weights``  : carry parameters and optimiser states over

@@ -37,7 +37,7 @@ from typing import Union
 import numpy as np
 import torch
 
-from gpsat_tpu_torch import resolve_device
+from gpsat_tpu_torch import resolve_device, tracing
 from gpsat_tpu_torch.parallel.mesh import get_mesh
 from gpsat_tpu_torch.parallel.scheduler import make_buckets
 
@@ -271,56 +271,65 @@ def execute_buckets(engine, X_list, obs_list, pred_list, coords_scale=1.0,
            "run_time": np.full(E, np.nan), "buckets": []}
 
     def assemble(bk):
-        t0 = time.perf_counter()
-        arrays = assemble_bucket(bk, X_list, obs_list, pred_list,
-                                 coords_scale, obs_scale, obs_mean,
-                                 overrides, predict, expert_locs)
-        return arrays, time.perf_counter() - t0
+        with tracing.span("execute.assemble", n_max=bk["n_max"]):
+            t0 = time.perf_counter()
+            arrays = assemble_bucket(bk, X_list, obs_list, pred_list,
+                                     coords_scale, obs_scale, obs_mean,
+                                     overrides, predict, expert_locs)
+            return arrays, time.perf_counter() - t0
 
     # one-deep prefetch: the next level's host assembly overlaps the current
     # level's device execution
     with ThreadPoolExecutor(max_workers=1) as prefetch:
-        pending = prefetch.submit(assemble, buckets[0]) if buckets else None
+        pending = prefetch.submit(tracing.propagate(assemble), buckets[0]) \
+            if buckets else None
         for bki, bk in enumerate(buckets):
-            t0 = time.perf_counter()
-            (X, y, mask, Xs, f_bar, ov, el_scaled), t_asm = pending.result()
-            if bki + 1 < len(buckets):
-                pending = prefetch.submit(assemble, buckets[bki + 1])
             ids = bk["indices"]
-            engine._last_pool_iterations = 0
-            engine._last_shard_pool_iterations = []
-            t1 = time.perf_counter()
-            result = engine.fit_predict_many(
-                X, y, mask, Xs=Xs, optimise=optimise, predict=predict,
-                param_overrides=ov, expert_locs=el_scaled, mesh=mesh)
-            t2 = time.perf_counter()
             b = len(ids)
-            bucket_time = t2 - t0
-            per_expert_time = bucket_time / max(b, 1)
+            with tracing.span("execute.level", n_max=bk["n_max"], experts=b):
+                t0 = time.perf_counter()
+                with tracing.span("execute.assemble_wait"):
+                    (X, y, mask, Xs, f_bar, ov, el_scaled), t_asm = \
+                        pending.result()
+                if bki + 1 < len(buckets):
+                    pending = prefetch.submit(tracing.propagate(assemble),
+                                              buckets[bki + 1])
+                engine._last_pool_iterations = 0
+                engine._last_shard_pool_iterations = []
+                t1 = time.perf_counter()
+                result = engine.fit_predict_many(
+                    X, y, mask, Xs=Xs, optimise=optimise, predict=predict,
+                    param_overrides=ov, expert_locs=el_scaled, mesh=mesh)
+                t2 = time.perf_counter()
+                bucket_time = t2 - t0
+                per_expert_time = bucket_time / max(b, 1)
 
-            for name, v in result["params"].items():
-                _put(out["params"][name], ids, np.asarray(v)[:b])
-            out["objective"][ids] = np.asarray(result["objective"])[:b]
-            out["converged"][ids] = np.asarray(result["converged"])[:b]
-            out["iterations"][ids] = np.asarray(result.get(
-                "iterations", np.zeros(b, int)))[:b]
-            for k in out["preds"]:
-                if k in result["preds"]:
-                    v = np.asarray(result["preds"][k])
-                    for bi, ei in enumerate(ids):
-                        P = n_pred[ei]
-                        out["preds"][k][ei, :P] = v[bi, :P]
-            out["f_bar"][ids] = f_bar[:b]
-            out["run_time"][ids] = per_expert_time
-            out["buckets"].append({
-                "n_max": bk["n_max"], "p_max": bk["p_max"], "experts": b,
-                "seconds": bucket_time, "assemble_seconds": t_asm,
-                "engine_seconds": t2 - t1,
-                "pool_iterations": int(engine._last_pool_iterations),
-                "shard_pool_iterations": list(
-                    engine._last_shard_pool_iterations)})
-            if on_bucket is not None:
-                on_bucket(ids, result, f_bar, per_expert_time)
+                with tracing.span("execute.scatter"):
+                    for name, v in result["params"].items():
+                        _put(out["params"][name], ids, np.asarray(v)[:b])
+                    out["objective"][ids] = np.asarray(
+                        result["objective"])[:b]
+                    out["converged"][ids] = np.asarray(
+                        result["converged"])[:b]
+                    out["iterations"][ids] = np.asarray(result.get(
+                        "iterations", np.zeros(b, int)))[:b]
+                    for k in out["preds"]:
+                        if k in result["preds"]:
+                            v = np.asarray(result["preds"][k])
+                            for bi, ei in enumerate(ids):
+                                P = n_pred[ei]
+                                out["preds"][k][ei, :P] = v[bi, :P]
+                    out["f_bar"][ids] = f_bar[:b]
+                    out["run_time"][ids] = per_expert_time
+                out["buckets"].append({
+                    "n_max": bk["n_max"], "p_max": bk["p_max"], "experts": b,
+                    "seconds": bucket_time, "assemble_seconds": t_asm,
+                    "engine_seconds": t2 - t1,
+                    "pool_iterations": int(engine._last_pool_iterations),
+                    "shard_pool_iterations": list(
+                        engine._last_shard_pool_iterations)})
+                if on_bucket is not None:
+                    on_bucket(ids, result, f_bar, per_expert_time)
             if verbose:
                 print(f"bucket N={bk['n_max']} P={bk['p_max']} B={b}: "
                       f"{bucket_time:.2f}s ({b / bucket_time:.1f} experts/s)")

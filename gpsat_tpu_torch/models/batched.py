@@ -25,7 +25,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from gpsat_tpu_torch import default_dtype, resolve_device
+from gpsat_tpu_torch import default_dtype, resolve_device, tracing
 from gpsat_tpu_torch.models.exact_gpr import (make_gpr_objective,
                                               make_gpr_vg_fun,
                                               move_within_bounds)
@@ -55,9 +55,10 @@ def _min_valid_size(mask, n_padded):
 
 
 def _np(a):
-    """Host numpy view of a tensor or array."""
+    """Host numpy view of a tensor or array (a read off the device is one
+    of tracing's host_reads)."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        return tracing.host(a.detach()).numpy()
     return np.asarray(a)
 
 
@@ -373,22 +374,27 @@ class BatchedGPR:
         Returns dict of numpy arrays.
         """
         B = X.shape[0]
-        mask_np = _np(mask).astype(bool)
-        y_var = self._signal_variance(_np(y), mask_np)
+        with tracing.span("chunk.prepare"):
+            mask_np = _np(mask).astype(bool)
+            y_var = self._signal_variance(_np(y), mask_np)
 
-        Xj = self._tensor(X)
-        yj = self._tensor(y)
-        do_predict = predict and Xs is not None
-        Xs_in = torch.zeros(B, 1, self.d, dtype=self.dtype, device=self.device) \
-            if Xs is None else self._tensor(Xs)
+            Xj = self._tensor(X)
+            yj = self._tensor(y)
+            do_predict = predict and Xs is not None
+            Xs_in = torch.zeros(B, 1, self.d, dtype=self.dtype,
+                                device=self.device) \
+                if Xs is None else self._tensor(Xs)
 
-        init = self._initial_params_batch(B, param_overrides, y_var=y_var,
-                                          clamp=bool(optimise))
-        params, fval, conv, iters, preds = self._execute(
-            init, Xj, yj, mask_np, Xs_in, optimise, do_predict)
-        params = {k: _np(v) for k, v in params.items()}
-        fval, conv, iters = _np(fval), _np(conv), _np(iters)
-        preds = {k: _np(v) for k, v in preds.items()}
+            init = self._initial_params_batch(B, param_overrides,
+                                              y_var=y_var,
+                                              clamp=bool(optimise))
+        with tracing.span("chunk.issue"):
+            params, fval, conv, iters, preds = self._execute(
+                init, Xj, yj, mask_np, Xs_in, optimise, do_predict)
+        with tracing.span("chunk.read"):
+            params = {k: _np(v) for k, v in params.items()}
+            fval, conv, iters = _np(fval), _np(conv), _np(iters)
+            preds = {k: _np(v) for k, v in preds.items()}
 
         if optimise and self.free_names:
             collapsed = self._collapsed(
@@ -398,20 +404,25 @@ class BatchedGPR:
                 state1 = self._snapshot_state()
                 alt = self._initial_params_batch(B, param_overrides,
                                                  y_var=y_var, scale=3.0)
-                p2, f2, c2, i2, pr2 = self._execute(
-                    alt, Xj, yj, mask_np, Xs_in, optimise, do_predict)
-                f2 = _np(f2)
-                use2 = collapsed & (f2 < fval) & np.isfinite(f2)
-                self._merge_state(state1, use2)
-                if use2.any():
-                    def pick(a, b):
-                        return np.where(use2.reshape((B,) + (1,) * (a.ndim - 1)),
-                                        _np(b), a)
-                    params = {k: pick(v, p2[k]) for k, v in params.items()}
-                    fval = np.where(use2, f2, fval)
-                    conv = np.where(use2, _np(c2), conv)
-                    iters = np.where(use2, _np(i2), iters)
-                    preds = {k: pick(v, pr2[k]) for k, v in preds.items()}
+                with tracing.span("chunk.issue", restart=True):
+                    p2, f2, c2, i2, pr2 = self._execute(
+                        alt, Xj, yj, mask_np, Xs_in, optimise, do_predict)
+                with tracing.span("chunk.read", restart=True):
+                    f2 = _np(f2)
+                    use2 = collapsed & (f2 < fval) & np.isfinite(f2)
+                    self._merge_state(state1, use2)
+                    if use2.any():
+                        def pick(a, b):
+                            return np.where(
+                                use2.reshape((B,) + (1,) * (a.ndim - 1)),
+                                _np(b), a)
+                        params = {k: pick(v, p2[k])
+                                  for k, v in params.items()}
+                        fval = np.where(use2, f2, fval)
+                        conv = np.where(use2, _np(c2), conv)
+                        iters = np.where(use2, _np(i2), iters)
+                        preds = {k: pick(v, pr2[k])
+                                 for k, v in preds.items()}
 
         return {"params": params, "objective": fval, "converged": conv,
                 "iterations": iters, "preds": preds}
@@ -442,7 +453,8 @@ class BatchedGPR:
                 ov = None if param_overrides is None else \
                     {n: v[a:b] for n, v in param_overrides.items()}
                 self._chunk_ctx = (chunk_mask, a - s) if sharded else None
-                with self._on_shard(mesh if sharded else None, k):
+                with self._on_shard(mesh if sharded else None, k), \
+                        tracing.span("engine.chunk", experts=b - a):
                     return self.fit_predict(
                         X[a:b], y[a:b], mask[a:b],
                         Xs=None if Xs is None else Xs[a:b],
@@ -595,8 +607,9 @@ class BatchedGPR:
                                       expert_locs)
         init = self._initial_params_batch(E, param_overrides, y_var=y_var,
                                           clamp=True)
-        u, fval, conv, iters = self._pool_optimize(init, X, y, mask_np, B,
-                                                   extra=extra, mesh=mesh)
+        with tracing.span("engine.pool", restart=False):
+            u, fval, conv, iters = self._pool_optimize(
+                init, X, y, mask_np, B, extra=extra, mesh=mesh)
 
         # collapse-restart (same policy as fit_predict) on the failed subset
         params = self._constrained_np(u)
@@ -607,9 +620,10 @@ class BatchedGPR:
             alt = self._initial_params_batch(E, param_overrides, y_var=y_var,
                                              scale=3.0)
             alt_rows = {k: np.asarray(v)[ids] for k, v in alt.items()}
-            u2, f2, c2, i2 = self._pool_optimize(
-                alt_rows, _np(X)[ids], y_np[ids], mask_np[ids], B,
-                extra=tuple(_np(a)[ids] for a in extra), mesh=mesh)
+            with tracing.span("engine.pool", restart=True):
+                u2, f2, c2, i2 = self._pool_optimize(
+                    alt_rows, _np(X)[ids], y_np[ids], mask_np[ids], B,
+                    extra=tuple(_np(a)[ids] for a in extra), mesh=mesh)
             take = np.isfinite(f2) & (f2 < fval[ids])
             if take.any():
                 rows = ids[take]
@@ -648,25 +662,31 @@ class BatchedGPR:
                 compute_fval=False)
             return p_chunk, pr
 
-        for s in range(0, E, B):
-            parts = [p for p in np.array_split(np.arange(s, min(s + B, E)),
-                                               n_sh if sharded else 1)
-                     if len(p)]
-            shard_mesh = mesh if sharded else None
-            pending = []
-            for k, rows in enumerate(parts):
-                with self._on_shard(shard_mesh, k):
-                    pending.append(launch(rows))
-            for k, (rows, (p_chunk, pr)) in enumerate(zip(parts, pending)):
-                with self._on_shard(shard_mesh, k):
-                    n = len(rows)
-                    for name in self.HYPER_NAMES:
-                        out_params[name][rows] = _np(p_chunk[name]).reshape(
-                            (n,) + self.param_shape(name))
-                    for key, v in pr.items():
-                        if key not in preds_out:
-                            preds_out[key] = np.empty((E,) + tuple(v.shape[1:]))
-                        preds_out[key][rows] = _np(v)
+        with tracing.span("engine.fill"):
+            for s in range(0, E, B):
+                parts = [p for p in np.array_split(
+                    np.arange(s, min(s + B, E)), n_sh if sharded else 1)
+                    if len(p)]
+                shard_mesh = mesh if sharded else None
+                pending = []
+                with tracing.span("fill.issue"):
+                    for k, rows in enumerate(parts):
+                        with self._on_shard(shard_mesh, k):
+                            pending.append(launch(rows))
+                with tracing.span("fill.read"):
+                    for k, (rows, (p_chunk, pr)) in enumerate(
+                            zip(parts, pending)):
+                        with self._on_shard(shard_mesh, k):
+                            n = len(rows)
+                            for name in self.HYPER_NAMES:
+                                out_params[name][rows] = _np(
+                                    p_chunk[name]).reshape(
+                                        (n,) + self.param_shape(name))
+                            for key, v in pr.items():
+                                if key not in preds_out:
+                                    preds_out[key] = np.empty(
+                                        (E,) + tuple(v.shape[1:]))
+                                preds_out[key][rows] = _np(v)
 
         return self._pool_finalize(
             {"params": out_params, "objective": fval, "converged": conv,
@@ -1026,7 +1046,7 @@ def _epoch_order(mask, seed, epoch):
     words = np.random.SeedSequence([int(seed), int(epoch)])
     gen = torch.Generator().manual_seed(int(words.generate_state(1)[0]))
     r = torch.rand(tuple(mask.shape), generator=gen, dtype=torch.float64)
-    r = torch.where(mask.cpu(), r, torch.full_like(r, 2.0))
+    r = torch.where(tracing.host(mask), r, torch.full_like(r, 2.0))
     return torch.argsort(r, dim=1).to(mask.device)
 
 
@@ -1178,7 +1198,7 @@ def _svgp_fit_predict(u0, qm0, qs0, X, y, mask, Z, zmask, Xs, perm, bijectors,
                                       cnt + check_every)
                     stop = nan_fail | ((cnt >= persistence) & early_stop)
                     done = done | stop
-                    if bool(done.all()):
+                    if bool(tracing.host(done.all())):
                         all_done_at = it if all_done_at is None \
                             else all_done_at
                         if it >= run_to:
@@ -1370,7 +1390,8 @@ class BatchedSVGP(BatchedSGPR):
              self._chunk_ctx[1]),
             run_to=run_to)
         if stop is not None:
-            stop["calls"].append((all_done_at, int(iters[0])))
+            stop["calls"].append((all_done_at,
+                                  int(tracing.host(iters[0]))))
         self._qm_final = _np(qm).copy()
         self._qs_final = _np(qs).copy()
         self._Z_final = _np(z).copy()

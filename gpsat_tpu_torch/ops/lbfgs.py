@@ -20,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gpsat_tpu_torch import tracing
+
 __all__ = ["batched_lbfgs", "batched_lbfgs_pool", "LBFGSResult",
            "linesearch_policy"]
 
@@ -234,7 +236,7 @@ def _batch_lbfgs_loop(batched_value_and_grad, x0, max_iter,
     # step and hard-fail / hit_cap bound every slot: a pure backstop
     it_cap = max_iter * (max_linesearch_steps + 2)
     c = _init_carry(batched_value_and_grad, x0, gtol, memory_size)
-    while c.it < it_cap and bool(torch.any(~c.done)):
+    while c.it < it_cap and bool(tracing.host(torch.any(~c.done))):
         c = body(c)
     # slots that only exhausted their per-slot budget are not converged
     return c.x, c.f, c.done & (c.iters < max_iter), c.iters
@@ -307,8 +309,9 @@ def _optax_single(f, x0, max_iter, gtol, ftol, memory_size,
         val = f(x)
         val.backward()
         if not first:      # (value, grad) at the point the step starts from
-            first.append((float(val.detach()), x.grad.detach().clone()))
-        if not torch.isfinite(val):
+            first.append((float(tracing.host(val.detach())),
+                          x.grad.detach().clone()))
+        if not bool(tracing.host(torch.isfinite(val))):
             # the line search takes a non-finite trial as infinitely bad
             # (it cannot bracket a NaN) and backs off from it
             x.grad.zero_()
@@ -316,7 +319,7 @@ def _optax_single(f, x0, max_iter, gtol, ftol, memory_size,
         return val
 
     with torch.no_grad():
-        f0 = float(f(x0))
+        f0 = float(tracing.host(f(x0)))
     best_f = f0 if np.isfinite(f0) else np.inf
     best_x = x0.detach().clone()
     prev_f, done, it = np.inf, False, 0
@@ -326,18 +329,20 @@ def _optax_single(f, x0, max_iter, gtol, ftol, memory_size,
             first.clear()
             opt.step(closure)
             value, grad = first[0]
-            finite = np.isfinite(value) and bool(torch.isfinite(x).all())
+            finite = np.isfinite(value) and \
+                bool(tracing.host(torch.isfinite(x).all()))
             if finite and value < best_f:
                 best_f, best_x = value, x_at
-            grad_small = float(grad.abs().max()) < gtol
+            grad_small = float(tracing.host(grad.abs().max())) < gtol
             f_change = abs(prev_f - value) <= ftol * max(abs(prev_f),
                                                          abs(value), 1.0)
             done = grad_small or (it > 0 and f_change) or not finite
             it += 1
             prev_f = value
     with torch.no_grad():
-        f_final = float(f(x))
-    if np.isfinite(f_final) and bool(torch.isfinite(x).all()) \
+        f_final = float(tracing.host(f(x)))
+    if np.isfinite(f_final) and \
+            bool(tracing.host(torch.isfinite(x).all())) \
             and f_final < best_f:
         best_f, best_x = f_final, x.detach().clone()
     return best_x, best_f, done and it <= max_iter, it
@@ -520,20 +525,20 @@ def _pool_mesh(pool_args, x0_all, args_all, slots, mesh):
     while live:
         flags = []
         for k in live:
-            with mesh.scope(k):
+            with mesh.scope(k), tracing.span("lbfgs.issue", shard=k):
                 pools[k].step()
                 flags.append(pools[k].running())
         still = []
         for k, flag in zip(live, flags):
-            with mesh.scope(k):
-                if bool(flag):
+            with mesh.scope(k), tracing.span("lbfgs.read", shard=k):
+                if bool(tracing.host(flag)):
                     still.append(k)
         live = still
     parts, nits = [], []
     for k in range(n):
         with mesh.scope(k):
             *out, nit = pools[k].result()
-            parts.append([t.cpu() for t in out])
+            parts.append([tracing.host(t) for t in out])
             nits.append(int(nit))
     out = tuple(torch.cat(ts, dim=0)[:E].to(x0_all.device)
                 for ts in zip(*parts))
@@ -567,8 +572,13 @@ def batched_lbfgs_pool(fun, x0_all, args_all, slots, max_iter=500, gtol=1e-6,
                            pool_iterations=max(nits),
                            shard_pool_iterations=nits)
     pool = _Pool(fun, x0_all, args_all, int(min(slots, E)), *pool_args[1:])
-    while bool(pool.running()):
-        pool.step()
+    while True:
+        with tracing.span("lbfgs.read"):
+            live = bool(tracing.host(pool.running()))
+        if not live:
+            break
+        with tracing.span("lbfgs.issue"):
+            pool.step()
     x, f, conv, iters, nit = pool.result()
     return LBFGSResult(x=x, fun=f, converged=conv, iterations=iters,
                        pool_iterations=nit)

@@ -30,7 +30,7 @@ from typing import Dict, List, Union
 import numpy as np
 import torch
 
-from gpsat_tpu_torch import resolve_device
+from gpsat_tpu_torch import resolve_device, tracing
 from gpsat_tpu_torch.utils import (cprint, json_serializable,
                                    nested_dict_literal_eval)
 
@@ -228,22 +228,23 @@ def smooth_field(x0, y0, vals, l_x, l_y, min=None, max=None, device=None,
     vals to [min, max], Gaussian-smooth them over the same (x0, y0) (with
     `mesh`, by the tiled smoother over it; else densely on `device`), and
     clamp the result again (reference: postprocessing.py:253-277)."""
-    vals = np.asarray(vals, dtype=float).copy()
-    if max is not None:
-        vals[vals > max] = max
-    if min is not None:
-        vals[vals < min] = min
-    if mesh is not None:
-        smoothed = gaussian_2d_smooth_tiled(x0, y0, x0, y0, l_x, l_y, vals,
-                                            mesh=mesh)
-    else:
-        smoothed = gaussian_2d_smooth(x0, y0, x0, y0, l_x, l_y, vals,
-                                      device=device)
-    if min is not None:
-        smoothed = np.maximum(smoothed, min)
-    if max is not None:
-        smoothed = np.minimum(smoothed, max)
-    return smoothed
+    with tracing.span("smooth.field"):
+        vals = np.asarray(vals, dtype=float).copy()
+        if max is not None:
+            vals[vals > max] = max
+        if min is not None:
+            vals[vals < min] = min
+        if mesh is not None:
+            smoothed = gaussian_2d_smooth_tiled(x0, y0, x0, y0, l_x, l_y,
+                                                vals, mesh=mesh)
+        else:
+            smoothed = gaussian_2d_smooth(x0, y0, x0, y0, l_x, l_y, vals,
+                                          device=device)
+        if min is not None:
+            smoothed = np.maximum(smoothed, min)
+        if max is not None:
+            smoothed = np.minimum(smoothed, max)
+        return smoothed
 
 
 def smooth_hyperparameters(result_file: str,

@@ -659,3 +659,80 @@ def test_sgpr_model_trains_inducing_points_on_the_card(dev):
     assert Z1.shape == Z0.shape and np.isfinite(Z1).all()
     assert np.abs(Z1 - Z0).max() > 1e-5
     assert model.get_objective_function_value() >= before
+
+
+# sites that synchronise by uploading from the host, not by reading from the
+# device: the engine's _tensor, a bijector's constants, the pool's scalars
+UPLOAD_SITES = {("batched.py", "_tensor"), ("transforms.py", "forward"),
+                ("transforms.py", "inverse"), ("lbfgs.py", "__init__")}
+
+
+def synchronising_sites(work):
+    """work() under torch.cuda's sync debug mode: [(file, function)] of the
+    Python frame of each synchronising call it made, in order."""
+    import traceback
+    import warnings
+    sites = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return
+        frame = [f for f in traceback.extract_stack()[:-1]
+                 if not f.filename.endswith("warnings.py")][-1]
+        sites.append((frame.filename.rsplit("/", 1)[-1], frame.name))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            work()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sites
+
+
+@pytest.mark.parametrize("optimise", [True, False])
+def test_host_reads_count_every_read_of_the_device(dev, monkeypatch,
+                                                   optimise):
+    """One level of execute_buckets on the card (the L-BFGS pool and the
+    fill, or the chunked re-predict at fitted parameters): tracing's
+    host_reads equals the synchronising calls that torch.cuda's sync debug
+    mode reports at tracing.host, and every other synchronising call is an
+    upload from the host."""
+    from gpsat_tpu_torch import tracing
+    from gpsat_tpu_torch.local_experts import execute_buckets, make_engine
+    from gpsat_tpu_torch.models.exact_gpr import GPRModel
+    from gpsat_tpu_torch.parallel import scheduler
+    monkeypatch.setattr(scheduler, "auto_batch_size", lambda *a, **k: 16)
+    rng = np.random.default_rng(11)
+    X_list, obs_list, pred_list = [], [], []
+    for n in rng.integers(140, 250, 40):
+        X = rng.uniform(-4, 4, (n, 3))
+        X_list.append(X)
+        obs_list.append(np.sin(X[:, 0]) + 0.1 * rng.standard_normal(n))
+        pred_list.append(rng.uniform(-4, 4, (50, 3)))
+    eng = make_engine(GPRModel, {}, {"lengthscales": {"low": [0.05] * 3,
+                                                      "high": [20.0] * 3}},
+                      coords_dim=3, device=dev)
+    fitted = execute_buckets(eng, X_list, obs_list, pred_list)
+    assert [b["n_max"] for b in fitted["buckets"]] == [256]
+    kw = {} if optimise else {"optimise": False,
+                              "overrides": fitted["params"]}
+    tracing.clear()
+    out = {}
+
+    def level():
+        with tracing.enable():
+            out.update(execute_buckets(eng, X_list, obs_list, pred_list,
+                                       **kw))
+    sites = synchronising_sites(level)
+    reads = sum(r["counts"].get("host_reads", 0)
+                for r in tracing.snapshot())
+    tracing.clear()
+    assert (out["buckets"][0]["pool_iterations"] > 0) == optimise
+    assert reads > 0
+    assert sites.count(("tracing.py", "host")) == reads
+    others = {s for s in sites if s != ("tracing.py", "host")}
+    assert others <= UPLOAD_SITES, others - UPLOAD_SITES
