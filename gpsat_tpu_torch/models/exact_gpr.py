@@ -115,6 +115,9 @@ def make_gpr_vg_fun(kernel, free_names, d):
         (gu,) = torch.autograd.grad(outs, ur, cots)
         return val.to(u.dtype), gu
 
+    # no read back to the host and no upload from it: ops/lbfgs may capture
+    # an L-BFGS iteration over it as a CUDA graph
+    vg_fun.capturable = True
     return vg_fun
 
 

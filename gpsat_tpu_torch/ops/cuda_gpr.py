@@ -28,7 +28,8 @@ Wrappers (``nlml_vg_batched``, ``nlml_value_batched``,
 lengthscale broadcast, ``f*_var`` clamped at 0. On a CUDA tensor a wrapper
 launches its kernel or raises; it takes its plain PyTorch version
 (``*_plain``, the same function in torch.linalg) only for tensors on the
-CPU. Each wrapper counts its launches in ``<wrapper>.launches``.
+CPU. Each wrapper counts its launches in ``<wrapper>.launches``; a
+``CapturedGraph`` adds the launches it captured on each replay.
 
 The shape gates ``cuda_vg_supported`` / ``cuda_value_supported`` /
 ``cuda_predict_supported`` keep the meaning of ``pallas_vg_supported`` /
@@ -48,7 +49,7 @@ __all__ = ["cuda_vg_supported", "nlml_vg_batched", "nlml_vg_batched_plain",
            "cuda_value_supported", "nlml_value_batched",
            "nlml_value_batched_plain", "cuda_predict_supported", "posterior_predict_batched",
            "posterior_predict_batched_plain", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "CapturedGraph"]
 
 _MAX_D = 5
 _TILE = 32          # the packing's padding unit
@@ -470,3 +471,40 @@ def reset_launch_counts():
     """Set every wrapper's launch count to 0."""
     for fn in _counted_wrappers().values():
         fn.launches = 0
+
+
+class CapturedGraph:
+    """`fn`, work on device buffers that reads and uploads nothing from the
+    host, captured once as a CUDA graph on a stream of its own on `device`.
+    `replay()` runs it on the current stream and adds the wrapper launches
+    the capture recorded to the wrappers' counts (launch_counts), as a call
+    of `fn` would; the capture itself launched nothing and counts nothing.
+    The graph and its memory pool go with the object.
+
+    The capture takes its memory from the device into the graph's own pool,
+    and the caching allocator cannot free what it holds for eager work while
+    a capture runs: after eager work that held most of the card, the capture
+    would run out of memory with the card's memory cached. So the cache, and
+    the pools of graphs freed before, go back to the device first."""
+
+    def __init__(self, fn, device):
+        before = launch_counts()
+        torch.cuda.empty_cache()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(torch.cuda.Stream(device)):
+            self.graph.capture_begin()
+            try:
+                fn()
+            finally:
+                self.graph.capture_end()
+        self.launches = []
+        for name, wrapper in _counted_wrappers().items():
+            n = wrapper.launches - before[name]
+            if n:
+                wrapper.launches -= n
+                self.launches.append((wrapper, n))
+
+    def replay(self):
+        self.graph.replay()
+        for wrapper, n in self.launches:
+            wrapper.launches += n

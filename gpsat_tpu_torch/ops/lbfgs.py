@@ -6,7 +6,9 @@ value-and-gradient trial per slot per iteration, a [B] done-mask, and a
 scalar ring pointer into the [m, B, P] curvature history. JAX's
 ``while_loop``s become host loops here: each iteration reads one boolean
 (are any slots still running?) back from the device, and everything else
-stays on the device.
+stays on the device. Over the fused GPR kernel's value_and_grad on a card
+(`_capturable`), the iteration is captured once a loop as a CUDA graph and
+replayed, and the boolean is read one iteration behind (`_Iterations`).
 
 The pooled variant (`batched_lbfgs_pool`) runs a `slots`-wide batch whose
 slots refill from the expert queue the moment they converge, so the batch
@@ -15,6 +17,7 @@ shard. `batched_lbfgs(engine="optax")` is the JAX package's per-expert
 cross-check engine.
 """
 
+from collections import deque
 from typing import NamedTuple
 
 import numpy as np
@@ -59,9 +62,10 @@ class LBFGSResult(dict):
 class Carry(NamedTuple):
     """The per-iteration L-BFGS state (the JAX carry tuple, in order).
 
-    `it` is the global iteration (ring-pointer base), a host int; `iters`
-    counts per-slot ACCEPTED steps, so slots refilled mid-run get correct
-    per-expert budgets."""
+    `it` is the global iteration (ring-pointer base): a host int, or a
+    0-dim int64 device tensor in an iteration captured as a CUDA graph;
+    `iters` counts per-slot ACCEPTED steps, so slots refilled mid-run get
+    correct per-expert budgets."""
     it: int
     x: torch.Tensor         # [B, P]
     f: torch.Tensor         # [B]
@@ -77,6 +81,13 @@ class Carry(NamedTuple):
     backed: torch.Tensor    # [B] bool
 
 
+def _ring_index(it, m, device):
+    """The ring positions (it - 1 - i) % m of the m history entries, newest
+    first; the last, it % m, is the next write. `it` is a host int, or a
+    0-dim int64 device tensor in an iteration captured as a CUDA graph."""
+    return (it - 1 - torch.arange(m, device=device)) % m
+
+
 def _make_step(batched_value_and_grad, B, P, dtype, max_iter,
                gtol, ftol, memory_size, max_linesearch_steps,
                recovery_steps=None):
@@ -89,23 +100,20 @@ def _make_step(batched_value_and_grad, B, P, dtype, max_iter,
     entry, so the preconditioner is not diluted."""
     m = memory_size
 
-    def two_loop(g, S, Y, rho, gamma, ptr):
-        """Search direction -H g for all experts; ptr is the scalar ring
-        position of the next write."""
+    def two_loop(g, S, Y, rho, gamma):
+        """Search direction -H g for all experts from the ring's entries,
+        newest first (see _ring_index)."""
         q = g
-        alpha = [None] * m
-        for i in range(m):
-            idx = (ptr - 1 - i) % m
-            a_i = rho[idx] * torch.sum(S[idx] * q, dim=-1)   # rho=0 -> no-op
-            q = q - a_i[:, None] * S[idx]
-            alpha[idx] = a_i
+        alpha = []
+        for s_i, rho_i in zip(S, rho):
+            a_i = rho_i * torch.sum(s_i * q, dim=-1)   # rho=0 -> no-op
+            q = q - a_i[:, None] * s_i
+            alpha.append(a_i)
         r = gamma[:, None] * q
-        for i in range(m):
-            idx = (ptr - m + i) % m
-            b_i = rho[idx] * torch.sum(Y[idx] * r, dim=-1)
-            coef = torch.where(rho[idx] > 0, alpha[idx] - b_i,
-                               torch.zeros_like(b_i))
-            r = r + coef[:, None] * S[idx]
+        for s_i, y_i, rho_i, a_i in reversed(list(zip(S, Y, rho, alpha))):
+            b_i = rho_i * torch.sum(y_i * r, dim=-1)
+            coef = torch.where(rho_i > 0, a_i - b_i, torch.zeros_like(b_i))
+            r = r + coef[:, None] * s_i
         return -r
 
     t_min = 0.5 ** max_linesearch_steps
@@ -120,7 +128,10 @@ def _make_step(batched_value_and_grad, B, P, dtype, max_iter,
 
     def body(c):
         it, x, f, g, S, Y, rho, gamma, done, iters, fail_cnt, t, backed = c
-        d = two_loop(g, S, Y, rho, gamma, it)
+        idx = _ring_index(it, m, x.device)
+        S_r, Y_r, rho_r = (a.index_select(0, idx).unbind(0)
+                           for a in (S, Y, rho))
+        d = two_loop(g, S_r, Y_r, rho_r, gamma)
         gd = torch.sum(g * d, dim=-1)
         bad_dir = ~torch.isfinite(gd) | (gd >= 0)
         d = torch.where(bad_dir[:, None], -g, d)
@@ -146,15 +157,13 @@ def _make_step(batched_value_and_grad, B, P, dtype, max_iter,
         keep = accept & (sy > 1e-10 * s_norm * y_norm)
 
         # rejected slots RETAIN their previous entry at the ring position
-        ptr = it % m
-        S = S.clone()
-        Y = Y.clone()
-        rho = rho.clone()
-        S[ptr] = torch.where(keep[:, None], s, S[ptr])
-        Y[ptr] = torch.where(keep[:, None], yv, Y[ptr])
-        rho[ptr] = torch.where(
+        # it % m, the oldest entry
+        put = idx[-1:]
+        S = S.index_copy(0, put, torch.where(keep[:, None], s, S_r[-1])[None])
+        Y = Y.index_copy(0, put, torch.where(keep[:, None], yv, Y_r[-1])[None])
+        rho = rho.index_copy(0, put, torch.where(
             keep, 1.0 / torch.where(sy == 0, torch.ones_like(sy), sy),
-            rho[ptr])
+            rho_r[-1])[None])
         yy = torch.sum(yv * yv, dim=-1)
         gamma = torch.where(keep & (yy > 0), sy / torch.clamp_min(yy, 1e-300),
                             gamma)
@@ -224,10 +233,103 @@ def _init_carry(batched_value_and_grad, x0, gtol, memory_size):
                  torch.zeros(B, dtype=torch.bool, device=dev))
 
 
+def _capturable(vg_fun, x):
+    """Whether an L-BFGS loop over `vg_fun` at the iterate `x` replays its
+    iterations as a CUDA graph: on a CUDA device, with a value_and_grad that
+    declares itself free of host reads and host tensors (`capturable`, set
+    where models/exact_gpr.make_gpr_vg_fun builds the fused kernel's)."""
+    return x.is_cuda and getattr(vg_fun, "capturable", False)
+
+
+class _Iterations:
+    """The iterations of one L-BFGS loop over `state`, a tuple of device
+    tensors led by the ring counter `it`: `issue()` queues one iteration,
+    `advance(state) -> state`; `read()` says whether to queue another, from
+    the device flag `running(state)` (is any slot still running?).
+
+    Eager, each iteration rebinds the state, and `read()` brings the flag
+    after the last iteration to the host. With `capture` (_capturable), the
+    first iteration runs eagerly, which also warms up, and the iteration is
+    then captured once as a CUDA graph over copies of the state that it
+    updates in place, `it` among them as a device counter; later iterations
+    replay it. `read()` then takes the flag of the iteration before the last
+    one queued, on a side stream, so the host queues iteration i + 1 before
+    it waits for iteration i: the one iteration queued past the last live
+    one changes no output (finished slots are frozen; the pool's harvest of
+    no slot writes its sink row), and `iterations` leaves it out."""
+
+    def __init__(self, advance, state, running, capture):
+        self.advance, self.running = advance, running
+        self.state = tuple(state)
+        self.lag = int(capture)
+        self.graph = None
+        self.flags = deque()
+        self.issued = 0
+
+    def issue(self):
+        if self.graph is not None:
+            self.graph.replay()
+            tracing.count("graph_replays")
+        else:
+            self.state = tuple(self.advance(self.state))
+            if self.lag:
+                self._capture()
+        self.issued += 1
+        event = None
+        flag = self.running(self.state)
+        if self.lag:
+            event = torch.cuda.Event()
+            event.record()
+        self.flags.append((flag, event))
+
+    def read(self):
+        """Whether to queue another iteration: before the first, the flag of
+        the initial state; eager, the flag after the last iteration queued;
+        captured, the flag after the one before it (none yet after the
+        first iteration, which was queued live)."""
+        if not self.issued:
+            return bool(tracing.host(self.running(self.state)))
+        if len(self.flags) <= self.lag:
+            return True
+        flag, event = self.flags.popleft()
+        if event is None:
+            return bool(tracing.host(flag))
+        self.side.wait_event(event)
+        with torch.cuda.stream(self.side):
+            return bool(tracing.host(flag))
+
+    @property
+    def iterations(self):
+        """Iterations queued while some slot was still running."""
+        return max(self.issued - self.lag, 0)
+
+    def _capture(self):
+        from gpsat_tpu_torch.ops.cuda_gpr import CapturedGraph
+        it, *rest = self.state
+        dev = rest[0].device
+        bufs = (torch.full((), it, dtype=torch.int64, device=dev),
+                *(t.clone() for t in rest))
+        self.state = bufs
+
+        def iteration():
+            for buf, new in zip(bufs, self.advance(bufs)):
+                buf.copy_(new)
+        with tracing.span("lbfgs.capture"):
+            self.graph = CapturedGraph(iteration, dev)
+        self.side = torch.cuda.Stream(dev)
+
+    def close(self):
+        """Free the graph and its memory pool; returns the state."""
+        self.graph = None
+        return self.state
+
+
 def _batch_lbfgs_loop(batched_value_and_grad, x0, max_iter,
                       gtol, ftol, memory_size, max_linesearch_steps,
-                      recovery_steps=None):
-    """Core batch-level loop. x0: [B, P]. Returns (x, f, converged, iters)."""
+                      recovery_steps=None, capture=False):
+    """Core batch-level loop. x0: [B, P]. Returns (x, f, converged, iters).
+    With `capture`, the iterations after the first replay as a CUDA graph
+    (_Iterations)."""
     B, P = x0.shape
     body = _make_step(batched_value_and_grad, B, P, x0.dtype,
                       max_iter, gtol, ftol, memory_size, max_linesearch_steps,
@@ -235,9 +337,13 @@ def _batch_lbfgs_loop(batched_value_and_grad, x0, max_iter,
     # a slot needs at most (max_linesearch_steps + 1) trials per accepted
     # step and hard-fail / hit_cap bound every slot: a pure backstop
     it_cap = max_iter * (max_linesearch_steps + 2)
-    c = _init_carry(batched_value_and_grad, x0, gtol, memory_size)
-    while c.it < it_cap and bool(tracing.host(torch.any(~c.done))):
-        c = body(c)
+    loop = _Iterations(lambda s: body(Carry(*s)),
+                       _init_carry(batched_value_and_grad, x0, gtol,
+                                   memory_size),
+                       lambda s: torch.any(~Carry(*s).done), capture)
+    while loop.issued < it_cap and loop.read():
+        loop.issue()
+    c = Carry(*loop.close())
     # slots that only exhausted their per-slot budget are not converged
     return c.x, c.f, c.done & (c.iters < max_iter), c.iters
 
@@ -275,7 +381,8 @@ def batched_lbfgs(fun, x0, args=(), max_iter=500, gtol=1e-6, ftol=1e-11,
         else _value_and_grad_of(fun, args)
     x, f, conv, iters = _batch_lbfgs_loop(vg, x0, max_iter, gtol, ftol,
                                           memory_size, max_linesearch_steps,
-                                          recovery_steps)
+                                          recovery_steps,
+                                          _capturable(vg_fun, x0))
     return LBFGSResult(x=x, fun=f, converged=conv, iterations=iters)
 
 
@@ -398,10 +505,10 @@ def _tree_map(fn, tree):
 
 
 class _Pool:
-    """The state of one slot pool over E experts, advanced one iteration at
-    a time by `step`; `running()` is a device bool (is any slot live?).
-    A one-device run is one pool; a mesh runs one pool per shard (see
-    _pool_mesh)."""
+    """One slot pool over E experts, its iterations queued and read through
+    `loop` (_Iterations): each iteration steps every slot, then harvests
+    and refills. A one-device run is one pool; a mesh runs one pool per
+    shard (see _pool_mesh)."""
 
     def __init__(self, fun, x0_all, args_all, slots, max_iter, gtol, ftol,
                  memory_size, max_linesearch_steps, vg_fun=None,
@@ -415,18 +522,21 @@ class _Pool:
         self.opts = (max_iter, gtol, ftol, memory_size, max_linesearch_steps,
                      recovery_steps)
         ids0 = torch.arange(B, device=dev)
-        self.carry = _init_carry(self._vg_at(ids0), x0_all[:B], gtol,
-                                 memory_size)
-        self.slot_expert = ids0
-        self.next_expert = torch.tensor(B, device=dev)
-        self.live = torch.ones(B, dtype=torch.bool, device=dev)
+        carry = _init_carry(self._vg_at(ids0), x0_all[:B], gtol, memory_size)
         # [E + 1] outputs: row E takes the writes of slots that harvest
         # nothing
         self.ox = torch.cat([x0_all, x0_all[:1]], dim=0)
         self.of = torch.zeros(E + 1, dtype=dtype, device=dev)
         self.oc = torch.zeros(E + 1, dtype=torch.bool, device=dev)
         self.oi = torch.zeros(E + 1, dtype=torch.int32, device=dev)
-        self.inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
+        self.inf = torch.full((), torch.inf, dtype=dtype, device=dev)
+        # the state: the carry, each slot's expert, the queue's next expert,
+        # the live slots
+        self.loop = _Iterations(
+            self._advance,
+            (*carry, ids0, torch.full((), B, device=dev),
+             torch.ones(B, dtype=torch.bool, device=dev)),
+            lambda state: torch.any(state[-1]), _capturable(vg_fun, x0_all))
 
     def _vg_at(self, ids):
         """value_and_grad over the per-slot arg rows `ids`."""
@@ -438,18 +548,15 @@ class _Pool:
             return lambda x: self.vg_fun(x, *args)
         return _value_and_grad_of(self.fun, args)
 
-    def running(self):
-        return torch.any(self.live)
-
-    def step(self):
+    def _advance(self, state):
         """One iteration of every slot, then harvest and refill."""
         E, B = self.E, self.B
         max_iter, gtol, ftol, m, mls, rec = self.opts
-        step = _make_step(self._vg_at(self.slot_expert), B, self.P,
+        *carry, slot_expert, next_expert, live = state
+        step = _make_step(self._vg_at(slot_expert), B, self.P,
                           self.dtype, max_iter, gtol, ftol, m, mls, rec)
-        c = step(self.carry)
-        slot_expert = self.slot_expert
-        harvest = c.done & self.live
+        c = step(Carry(*carry))
+        harvest = c.done & live
         idx = torch.where(harvest, slot_expert,
                           torch.full_like(slot_expert, E))
         self.ox[idx] = c.x
@@ -458,11 +565,8 @@ class _Pool:
         self.oi[idx] = c.iters
         # refill freed slots from the queue (prefix-sum assignment)
         order = torch.cumsum(harvest.to(torch.int64), dim=0)
-        new_id = self.next_expert + order - 1
+        new_id = next_expert + order - 1
         ok = harvest & (new_id < E)
-        self.slot_expert = torch.where(ok, new_id, slot_expert)
-        self.live = (self.live & ~harvest) | ok
-        self.next_expert = torch.clamp_max(self.next_expert + order[-1], E)
         okc = ok[:, None]
         x = torch.where(okc, self.x0_all.index_select(
             0, torch.clamp(new_id, 0, E - 1)), c.x)
@@ -470,7 +574,7 @@ class _Pool:
         # with f=inf, g=0 the direction is 0, the unchanged point is accepted
         # on its first trial and that trial's value_and_grad delivers its
         # (f0, g0); iters=-1 keeps the bootstrap pass off its budget
-        self.carry = Carry(
+        return (
             c.it, x,
             torch.where(ok, self.inf, c.f),
             torch.where(okc, torch.zeros_like(c.g), c.g),
@@ -482,14 +586,18 @@ class _Pool:
             torch.where(ok, torch.full_like(c.iters, -1), c.iters),
             torch.where(ok, torch.zeros_like(c.fail_cnt), c.fail_cnt),
             torch.where(ok, torch.ones_like(c.t), c.t),
-            torch.where(ok, torch.zeros_like(c.backed), c.backed))
+            torch.where(ok, torch.zeros_like(c.backed), c.backed),
+            torch.where(ok, new_id, slot_expert),
+            torch.clamp_max(next_expert + order[-1], E),
+            (live & ~harvest) | ok)
 
     def result(self):
         """(x, f, converged, iterations) [E], and the pool iterations (=
-        trials per slot, a diagnostic)."""
+        trials per slot, a diagnostic); frees the loop's graph."""
         E = self.E
+        self.loop.close()
         return (self.ox[:E], self.of[:E], self.oc[:E], self.oi[:E],
-                self.carry.it)
+                self.loop.iterations)
 
 
 def _pool_mesh(pool_args, x0_all, args_all, slots, mesh):
@@ -502,7 +610,8 @@ def _pool_mesh(pool_args, x0_all, args_all, slots, mesh):
 
     One host thread drives the shards in lockstep: each turn issues one
     iteration of every live shard under its scope (device and stream), and
-    only then reads each shard's any(live). Returns ((x, f, converged,
+    only then reads each shard's any(live) (of the iteration before, where
+    the iteration is captured: _Iterations). Returns ((x, f, converged,
     iterations) on x0_all's device, [pool iterations of each shard])."""
     from gpsat_tpu_torch.parallel.mesh import pad_to_multiple, shard_experts
     E = x0_all.shape[0]
@@ -523,15 +632,13 @@ def _pool_mesh(pool_args, x0_all, args_all, slots, mesh):
                                *pool_args[1:]))
     live = list(range(n))
     while live:
-        flags = []
         for k in live:
             with mesh.scope(k), tracing.span("lbfgs.issue", shard=k):
-                pools[k].step()
-                flags.append(pools[k].running())
+                pools[k].loop.issue()
         still = []
-        for k, flag in zip(live, flags):
+        for k in live:
             with mesh.scope(k), tracing.span("lbfgs.read", shard=k):
-                if bool(tracing.host(flag)):
+                if pools[k].loop.read():
                     still.append(k)
         live = still
     parts, nits = [], []
@@ -574,11 +681,11 @@ def batched_lbfgs_pool(fun, x0_all, args_all, slots, max_iter=500, gtol=1e-6,
     pool = _Pool(fun, x0_all, args_all, int(min(slots, E)), *pool_args[1:])
     while True:
         with tracing.span("lbfgs.read"):
-            live = bool(tracing.host(pool.running()))
+            live = pool.loop.read()
         if not live:
             break
         with tracing.span("lbfgs.issue"):
-            pool.step()
+            pool.loop.issue()
     x, f, conv, iters, nit = pool.result()
     return LBFGSResult(x=x, fun=f, converged=conv, iterations=iters,
                        pool_iterations=nit)

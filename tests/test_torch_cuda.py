@@ -282,6 +282,136 @@ def test_engine_on_the_card_matches_the_host_engine(dev):
                                atol=1e-2)
 
 
+def lbfgs_case(dev, E=24, N=60, D=3):
+    """The engine test's E experts as the L-BFGS loops take them on the card
+    (f32 u0 and args), with expert 0 walled in at its start: every trial
+    point off it is NaN for that expert, so its line search fails, resets
+    its history, fails again and ends it. Returns (u0, args, vg, eager): vg
+    declares itself capturable (ops/lbfgs._capturable), eager is the same
+    function without the declaration."""
+    from gpsat_tpu_torch.models.batched import BatchedGPR
+    from gpsat_tpu_torch.models.exact_gpr import make_gpr_vg_fun
+    rng = np.random.default_rng(1)
+    X = rng.uniform(-4, 4, (E, N, D))
+    X[..., 2] = 0.0
+    y = 0.4 * np.sin(X[..., 0] * 0.8) + 0.05 * rng.standard_normal((E, N))
+    y = y - y.mean(axis=1, keepdims=True)
+    eng = BatchedGPR(coords_dim=D, kernel="Matern32", constraints={
+        "lengthscales": {"low": [0.01] * D, "high": [50.0] * D},
+        "likelihood_variance": {"low": 1e-5, "high": 1.0}})
+    u0 = eng._unconstrained(eng._initial_params_batch(
+        E, y_var=y.var(axis=1)), E)
+    poison = torch.zeros(E, dtype=torch.bool, device=dev)
+    poison[0] = True
+    args = (eng._tensor(X), eng._tensor(y),
+            torch.ones(E, N, dtype=torch.bool, device=dev),
+            eng._batched_bijectors(E), {}, poison, u0.clone())
+    fused = make_gpr_vg_fun("Matern32", eng.free_names, D)
+
+    def vg(u, X, y, mask, bij, fixed, poison, u_start):
+        f, g = fused(u, X, y, mask, bij, fixed)
+        off = poison & (u != u_start).any(dim=1)
+        return (torch.where(off, torch.nan, f),
+                torch.where(off[:, None], torch.nan, g))
+    vg.capturable = True
+    return u0, args, vg, lambda *a: vg(*a)
+
+
+def run_lbfgs(loop, u0, args, vg_fun, mesh=None):
+    """(result, launch counts, tracing records) of one L-BFGS loop on the
+    card: the pool (8 slots), the one-shot loop, or the one-shot loop at
+    max_iter 1, which its it_cap (1 x (8 + 2) iterations) ends."""
+    from gpsat_tpu_torch import tracing
+    from gpsat_tpu_torch.ops.lbfgs import batched_lbfgs, batched_lbfgs_pool
+    kw = dict(max_iter=1 if loop == "it_cap" else 250, gtol=1e-5, ftol=1e-9,
+              max_linesearch_steps=8, recovery_steps=4, vg_fun=vg_fun)
+    cuda_gpr.reset_launch_counts()
+    tracing.clear()
+    with tracing.enable():
+        res = batched_lbfgs_pool(None, u0, args, slots=8, mesh=mesh, **kw) \
+            if loop == "pool" else batched_lbfgs(None, u0, args, **kw)
+        torch.cuda.synchronize()
+    recs = tracing.snapshot()
+    tracing.clear()
+    return res, cuda_gpr.launch_counts(), recs
+
+
+def assert_same_lbfgs(got, want):
+    for k in ("x", "fun", "converged", "iterations"):
+        a, b = got[k], want[k]
+        if a.is_floating_point():
+            a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+        assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("loop", ["pool", "one-shot", "it_cap"])
+def test_captured_lbfgs_equals_the_eager_loop(dev, loop):
+    """The fused GPR objective's L-BFGS iteration replayed as a CUDA graph
+    (ops/lbfgs._Iterations) against the same loop run eagerly, reached
+    through a value_and_grad that does not declare itself capturable: every
+    output bit for bit, on a pool level with refills and a history reset,
+    the one-shot loop, and its it_cap stop. The launch counts agree but for
+    the one iteration queued past the last live one (none where it_cap ends
+    the loop); one capture, one replay an iteration after the first."""
+    u0, args, vg, eager = lbfgs_case(dev)
+    want, want_n, want_recs = run_lbfgs(loop, u0, args, eager)
+    got, got_n, recs = run_lbfgs(loop, u0, args, vg)
+    assert_same_lbfgs(got, want)
+    assert int(want["iterations"][0]) == 0     # expert 0 ended by its fails
+    replays = sum(r["counts"].get("graph_replays", 0) for r in recs)
+    assert [r["name"] for r in recs].count("lbfgs.capture") == 1
+    assert not any("graph_replays" in r["counts"] for r in want_recs)
+    trailing = 0 if loop == "it_cap" else 1
+    assert got_n == dict(want_n, nlml_vg=want_n["nlml_vg"] + trailing)
+    if loop == "pool":
+        assert got.pool_iterations == want.pool_iterations == replays
+    elif loop == "it_cap":
+        assert want_n["nlml_vg"] == 1 + 10 and replays == 10 - 1
+        assert not bool(want["converged"].any())
+
+
+def test_captured_lbfgs_runs_after_eager_work_cached_the_card(dev):
+    """A capture takes new memory from the device, and the caching allocator
+    cannot free its cache while capturing: with the card's memory held in
+    the cache by eager work that ended (all but a few MiB), the captured
+    pool still runs (ops/cuda_gpr.CapturedGraph gives the cache back first)
+    and ends every expert as the eager pool."""
+    u0, args, vg, eager = lbfgs_case(dev)
+    want, _, _ = run_lbfgs("pool", u0, args, eager)
+    hold = []
+    try:
+        # 1 GiB, 16 MiB, then 512 KiB blocks (2 MiB segments) until the
+        # device has no segment left to give
+        for size in (1 << 30, 1 << 24, 1 << 19):
+            while True:
+                try:
+                    hold.append(torch.empty(size, dtype=torch.uint8,
+                                            device=dev))
+                except torch.cuda.OutOfMemoryError:
+                    break
+        assert torch.cuda.mem_get_info(dev)[0] < 4 << 20
+        del hold[:]
+        got, _, _ = run_lbfgs("pool", u0, args, vg)
+    finally:
+        del hold
+        torch.cuda.empty_cache()
+    assert_same_lbfgs(got, want)
+
+
+def test_captured_mesh_equals_one_device(dev):
+    """A two-shard mesh of cuda:0, each shard's pool captured on its own
+    stream, ends every expert as the one-device captured pool, bit for
+    bit."""
+    from gpsat_tpu_torch.parallel.mesh import get_mesh
+    u0, args, vg, _ = lbfgs_case(dev)
+    one, _, _ = run_lbfgs("pool", u0, args, vg)
+    two, _, recs = run_lbfgs("pool", u0, args, vg,
+                             mesh=get_mesh(devices=["cuda:0", "cuda:0"]))
+    assert_same_lbfgs(two, one)
+    assert len(two.shard_pool_iterations) == 2
+    assert [r["name"] for r in recs].count("lbfgs.capture") == 2
+
+
 # ---------------------------------------------------------------------------
 # SGPR: cholinv, the two stream kernels, the engine
 # ---------------------------------------------------------------------------
@@ -662,9 +792,9 @@ def test_sgpr_model_trains_inducing_points_on_the_card(dev):
 
 
 # sites that synchronise by uploading from the host, not by reading from the
-# device: the engine's _tensor, a bijector's constants, the pool's scalars
+# device: the engine's _tensor, a bijector's constants
 UPLOAD_SITES = {("batched.py", "_tensor"), ("transforms.py", "forward"),
-                ("transforms.py", "inverse"), ("lbfgs.py", "__init__")}
+                ("transforms.py", "inverse")}
 
 
 def synchronising_sites(work):

@@ -1,6 +1,8 @@
 """The port's exact-GPR sweep engine (gpsat_tpu_torch BatchedGPR and its
 L-BFGS) against the JAX engine on the same numpy inputs, on the CPU."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import jax
@@ -103,14 +105,21 @@ def _assert_same_carry(tc, jc):
                                        err_msg=name)
 
 
-def test_make_step_matches_jax_from_identical_carries():
+@pytest.mark.parametrize("ring", ["host int", "device counter"])
+def test_make_step_matches_jax_from_identical_carries(ring):
     """Twelve iterations, each started from the JAX carry: every field of the
-    next carry agrees (booleans and counters exactly)."""
+    next carry agrees (booleans and counters exactly). The ring pointer is
+    the host int of the eager loop, or the int64 tensor of a captured
+    iteration (ops/lbfgs._Iterations), both through the one ring index
+    (ops/lbfgs._ring_index), past one turn of the ring."""
     jvg, u0, (jstep, tstep) = _step_setup()
     jstep = jax.jit(jstep)
     jc = jlbfgs._init_carry(jvg, jnp.asarray(u0), 1e-5, 10)
     for _ in range(12):
-        tc = tstep(carry_from_jax(jc, device="cpu"))
+        c = carry_from_jax(jc, device="cpu")
+        if ring == "device counter":
+            c = c._replace(it=torch.tensor(c.it))
+        tc = tstep(c)
         jc = jstep(jc)
         _assert_same_carry(tc, jc)
 
@@ -145,6 +154,138 @@ def test_refilled_slot_bootstraps_on_its_first_trial():
     jc2 = jstep(tuple(jnp.asarray(a.numpy()) if isinstance(a, torch.Tensor)
                       else jnp.asarray(a, jnp.int32) for a in c))
     _assert_same_carry(out, jc2)
+
+
+# ---------------------------------------------------------------------------
+# the captured iteration (ops/lbfgs._Iterations), rehearsed on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("vg, card", [
+    ("gpr fused kernel", True), ("gpr autograd", False), ("none", False),
+    ("sgpr hybrid", False), ("sgpr stream", False), ("sgpr mega", False)])
+def test_capture_gate(vg, card):
+    """Only the fused GPR kernel's value_and_grad on a card is captured:
+    never on the CPU, never SGPR's routes, autograd, or the autograd
+    objectives that pass no vg_fun (VFF's, the per-expert models')."""
+    from types import SimpleNamespace
+    from gpsat_tpu_torch.models.batched import make_sgpr_vg_fun
+    obj, _ = make_gpr_objective("Matern32", NAMES, 3)
+    fn = {"gpr fused kernel": make_gpr_vg_fun("Matern32", NAMES, 3),
+          "gpr autograd": tlbfgs._value_and_grad_of(obj, ()),
+          "none": None}.get(vg)
+    if vg.startswith("sgpr"):
+        fn = make_sgpr_vg_fun("Matern32", NAMES, 3, 1e-6, vg.split()[1])
+    assert tlbfgs._capturable(fn, torch.zeros(2, 5)) is False
+    assert bool(tlbfgs._capturable(fn, SimpleNamespace(is_cuda=True))) \
+        == card
+
+
+def wall_vg(x, a, c, w):
+    """value_and_grad of 0.5 sum a (x - c)^2, NaN beyond the wall x_0 > w:
+    a minimum beyond the wall makes the slot's line searches fail near it,
+    which resets its history and then ends the slot."""
+    beyond = x[:, 0] > w
+    f = 0.5 * (a * (x - c) ** 2).sum(-1)
+    return (torch.where(beyond, torch.nan, f),
+            torch.where(beyond[:, None], torch.nan, a * (x - c)))
+
+
+def wall_problem(E, P=3, seed=0):
+    rng = np.random.default_rng(seed)
+    t = torch.as_tensor
+    a = t(rng.uniform(0.5, 20.0, (E, P)))
+    c = t(rng.uniform(-2.0, 2.0, (E, P)))
+    w = t(np.where(rng.uniform(size=E) < 0.3, -0.5, 10.0))  # walls in front
+    return t(rng.uniform(-1.0, 1.0, (E, P))) - 1.0, (a, c, w)
+
+
+class ReplayedGraph:
+    """ops/cuda_gpr.CapturedGraph on the CPU: capturing runs nothing, and each replay
+    runs the captured function again over the same buffers."""
+    replays = 0
+
+    def __init__(self, fn, device):
+        self.fn = fn
+
+    def replay(self):
+        ReplayedGraph.replays += 1
+        self.fn()
+
+
+class NoStream:
+    def wait_event(self, event):
+        pass
+
+
+class NoEvent:
+    def record(self):
+        pass
+
+
+def run_loop(case, capture, monkeypatch, resets):
+    """(x, fun, converged, iterations, pool iterations) of one wall-problem
+    run: the pool (18 experts, 5 slots), the pool over a two-shard CPU mesh,
+    or the one-shot loop (max_iter 1 with a slot at its wall, so the loop
+    ends at its it_cap), eager or captured."""
+    if capture:
+        monkeypatch.setattr(tlbfgs, "_capturable", lambda vg_fun, x: True)
+        monkeypatch.setattr(cuda_gpr, "CapturedGraph", ReplayedGraph)
+        monkeypatch.setattr(torch.cuda, "Event", NoEvent)
+        monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: NoStream())
+        monkeypatch.setattr(torch.cuda, "stream",
+                            lambda s: contextlib.nullcontext())
+    real = tlbfgs._make_step
+
+    def spy(*args, **kw):          # the largest fail_cnt any slot reaches
+        body = real(*args, **kw)
+
+        def step(c):
+            out = body(c)
+            resets.append(int(out.fail_cnt.max()))
+            return out
+        return step
+    monkeypatch.setattr(tlbfgs, "_make_step", spy)
+    ReplayedGraph.replays = 0
+    if case == "one-shot":
+        x0, (a, c, w) = wall_problem(7, seed=2)
+        x0[0, 0], w[0], c[0, 0] = -0.5 - 1e-9, -0.5, 1.0
+        res = tlbfgs.batched_lbfgs(None, x0, (a, c, w), max_iter=1,
+                                   vg_fun=wall_vg)
+        out = (res.x, res.fun, res.converged, res.iterations, None)
+    else:
+        x0, args = wall_problem(18)
+        mesh = None
+        if case == "mesh":
+            from gpsat_tpu_torch.parallel.mesh import get_mesh
+            mesh = get_mesh(devices=["cpu"] * 2)
+        res = tlbfgs.batched_lbfgs_pool(None, x0, args, slots=5,
+                                        max_iter=40, gtol=1e-8,
+                                        vg_fun=wall_vg, mesh=mesh)
+        out = (res.x, res.fun, res.converged, res.iterations,
+               res.pool_iterations)
+    monkeypatch.undo()
+    return out
+
+
+@pytest.mark.parametrize("case", ["pool", "mesh", "one-shot"])
+def test_captured_loop_equals_the_eager_loop(case, monkeypatch):
+    """The captured path of ops/lbfgs (a device ring counter, buffers updated
+    in place, the flag read one iteration behind, the iteration queued past
+    the last live one) with a graph that reruns its function: every output
+    and the pool iterations equal the eager loop's, bit for bit, on a run
+    with refills, history resets and (one-shot) the it_cap stop."""
+    resets = []
+    want = run_loop(case, False, monkeypatch, resets)
+    assert max(resets) >= 1
+    got = run_loop(case, True, monkeypatch, [])
+    for name, a, b in zip(("x", "fun", "converged", "iterations"), got, want):
+        assert torch.equal(a, b) or (a.is_floating_point() and torch.equal(
+            torch.nan_to_num(a), torch.nan_to_num(b))), name
+    assert got[4] == want[4]
+    if case == "pool":
+        assert ReplayedGraph.replays == want[4]
+    if case == "one-shot":
+        assert not want[2][0]           # the slot the it_cap stopped
 
 
 def test_linesearch_policy_matches_jax():

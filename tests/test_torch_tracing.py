@@ -201,10 +201,8 @@ def test_smooth_field_records_one_span():
     assert rec["name"] == "smooth.field"
 
 
-def test_the_idle_tool_slices_reduce_without_changing_it():
-    """tools/idle_by_span.py: its sliced trace.reduce labels the idle time
-    as one reduce over the whole trace does, and its timeline names the
-    innermost span at any time."""
+def idle_tool():
+    """tools/idle_by_span.py as a module."""
     import importlib.util
     import os
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -212,6 +210,14 @@ def test_the_idle_tool_slices_reduce_without_changing_it():
         "idle_by_span", os.path.join(root, "tools", "idle_by_span.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
+    return tool
+
+
+def test_the_idle_tool_slices_reduce_without_changing_it():
+    """tools/idle_by_span.py: its sliced trace.reduce labels the idle time
+    as one reduce over the whole trace does, and its timeline names the
+    innermost span at any time."""
+    tool = idle_tool()
     from gpbench import trace
 
     rng = np.random.default_rng(0)
@@ -245,3 +251,40 @@ def test_the_idle_tool_slices_reduce_without_changing_it():
     tl = tool.Timeline(recs)
     assert [tl.at(t0 + x) for x in (0.0005, 0.0012, 0.0017, -1.0)] == \
         ["issue", "read", "level", None]
+
+
+def test_the_idle_tool_gives_a_graphs_kernels_to_its_replay(monkeypatch):
+    """tools/idle_by_span.py: the kernels of a CUDA graph, which carry the
+    correlation id of their cudaGraphLaunch, count in the span that replayed
+    the graph, though they run while the host waits in the next span, and
+    though the launch call starts a little before the span on the launch
+    clock (the anchor's offset): the middle of the call decides."""
+    import threading
+    from types import SimpleNamespace
+    tool = idle_tool()
+    main = threading.get_ident()
+    recs = [{"id": i, "name": n, "t0": a, "t1": b, "parent": None,
+             "thread": main, "attrs": {}, "counts": {}}
+            for i, (n, a, b) in enumerate([("lbfgs.issue", 10.001, 10.002),
+                                           ("lbfgs.read", 10.002, 10.010)])]
+    monkeypatch.setattr(tracing, "snapshot", lambda: recs)
+    # device microseconds: the first marker, a graph's three kernels, the
+    # second marker; launch calls in ns on the profiler's clock
+    win = SimpleNamespace(
+        host_t0=10.0, host_t1=10.02, host_m2=10.015,
+        events=[("fill", 0.0, 1.0), ("a", 3000.0, 4000.0),
+                ("b", 4000.0, 6000.0), ("c", 6000.0, 9000.0),
+                ("fill", 15000.0, 15001.0)],
+        kernels=[1, 7, 7, 7, 9],
+        launch_ns={1: (0, "cudaLaunchKernel", 5e3),
+                   7: (0.995e6, "cudaGraphLaunch", 0.5e6),
+                   9: (15e6, "cudaLaunchKernel", 5e3)})
+    out = tool.attribute(win, {"units": [], "trace": {
+        "window_s": 0.02, "busy_s": 0.006, "idle": {}}})
+    issue, read = out["spans"]["lbfgs.issue"], out["spans"]["lbfgs.read"]
+    assert (issue["kernels"], issue["graph_launches"],
+            issue["graph_kernels"]) == (3, 1, 3)
+    assert issue["graph_launch_s"] == pytest.approx(0.0005)
+    assert issue["device_s"] == pytest.approx(0.006)
+    assert (read["kernels"], read["graph_kernels"]) == (0, 0)
+    assert out["kernels_by_launch"] == 5

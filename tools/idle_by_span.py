@@ -16,7 +16,10 @@ searches only the spans it overlaps). Prints one JSON object:
 - spans: for each span name, its count, host seconds, self seconds (less
   its child spans), device idle seconds, the CUDA kernels launched inside it
   and their device seconds (a kernel belongs to the span in which the host
-  launched it), and its host_reads;
+  launched it; a kernel of a CUDA graph, to the span that replayed the
+  graph: it carries the correlation id of that `cudaGraphLaunch`), the
+  graph launches and graph kernels among them and the host seconds of
+  those launch calls, and its host_reads;
 - drift: a second marker launched after the window's last synchronise,
   against the first: device time less host time between the two markers,
   the launch calls' clock less host time, and each marker's start after
@@ -50,7 +53,8 @@ SLICE = 4096    # device events per reduce call
 class MarkedWindow(trace.Window):
     """trace.Window with a second marker after the window's last
     synchronise, and the launch (runtime) events of the trace kept:
-    `launch_ns` {correlation id: host start on the profiler's clock}."""
+    `launch_ns` {correlation id: (host start on the profiler's clock, the
+    runtime call's name, its duration in ns)}."""
 
     last = None
 
@@ -75,14 +79,15 @@ class MarkedWindow(trace.Window):
 
 def read_events(prof):
     """trace.device_events' list, each device event's correlation id in the
-    same order, and {correlation id: start_ns} of the host's launch calls,
-    from one pass over the profiler's results."""
+    same order, and {correlation id: (start_ns, name, duration_ns)} of the
+    host's launch calls, from one pass over the profiler's results."""
     dev, host = [], {}
     cuda = torch.autograd.DeviceType.CUDA
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != cuda:
             if e.name().startswith("cu"):
-                host[e.correlation_id()] = e.start_ns()
+                host[e.correlation_id()] = (e.start_ns(), e.name(),
+                                            e.duration_ns())
             continue
         s, d = e.start_ns() / 1e3, e.duration_ns() / 1e3
         dev.append((s, e.name(), s + d, e.correlation_id()))
@@ -133,9 +138,10 @@ def idle_by_span(events, host_t0, host_t1, spans):
     return idle
 
 
-def span_table(recs, main, idle, launched):
+def span_table(recs, main, idle, launched, graphs):
     """Per span name: count, host and self seconds, device idle seconds,
-    kernels launched and their device seconds, host_reads; the prefetch
+    kernels launched and their device seconds, graph launches, graph
+    kernels and the launch calls' host seconds, host_reads; the prefetch
     thread's spans under their own names."""
     child = {}
     for r in recs:
@@ -158,6 +164,8 @@ def span_table(recs, main, idle, launched):
     for name, row in rows.items():
         row["idle_s"] = idle.get(name, 0.0)
         row["kernels"], row["device_s"] = launched.get(name, (0, 0.0))
+        row["graph_launches"], row["graph_kernels"], \
+            row["graph_launch_s"] = graphs.get(name, (0, 0, 0.0))
     return rows
 
 
@@ -169,11 +177,11 @@ def attribute(win, rec):
             if win.host_t0 <= r["t0"] < win.host_t1]
     mine = [r for r in recs if r["thread"] == main and r["name"]]
     dev0 = events[0][1]
-    r0 = win.launch_ns.get(win.kernels[0])
+    r0 = win.launch_ns.get(win.kernels[0], (None,))[0]
     # the second marker: the last event named as the first (the marker's
     # fill kernel)
     m2 = max(i for i, ev in enumerate(events) if ev[0] == events[0][0])
-    r2 = win.launch_ns.get(win.kernels[m2])
+    r2 = win.launch_ns.get(win.kernels[m2], (None,))[0]
     # each marker's start after its launch, on the profiler's one clock
     late = [None if r is None else (events[i][1] * 1e3 - r) * 1e-9
             for i, r in ((0, r0), (m2, r2))]
@@ -192,28 +200,36 @@ def attribute(win, rec):
     idle = idle_by_span(events, win.host_t0 + (late[0] or 0.0), win.host_t1,
                         spans)
 
-    # each kernel to the span its launch call ran in: the launch calls'
-    # clock set by the first marker (launched at host_t0), else the
-    # kernel's own start mapped by the device clock
+    # each kernel to the span its launch call ran in (a graph's kernels to
+    # the span of its cudaGraphLaunch), at the middle of the call: the
+    # launch calls' clock set by the first marker (launched at host_t0; a
+    # replay starts a span, which the call's start can precede by the
+    # anchor's tens of microseconds), else the kernel's own start mapped by
+    # the device clock
     tl = Timeline(mine)
-    launched, by_launch = {}, 0
+    launched, by_launch, graphs, seen = {}, 0, {}, set()
     for (name, a, b), corr in zip(events, win.kernels):
-        r = win.launch_ns.get(corr)
+        r, call, dur = win.launch_ns.get(corr, (None, None, 0))
         if r is not None and r0 is not None:
-            t = win.host_t0 + (r - r0) * 1e-9
+            t = win.host_t0 + (r + dur / 2 - r0) * 1e-9
             by_launch += 1
         else:
             t = win.host_t0 + (a - dev0) * 1e-6
         lab = tl.at(t)
         n, s = launched.get(lab, (0, 0.0))
         launched[lab] = (n + 1, s + (b - a) * 1e-6)
+        if call is not None and call.startswith("cudaGraphLaunch"):
+            g, k, d = graphs.get(lab, (0, 0, 0.0))
+            new = corr not in seen
+            graphs[lab] = (g + new, k + 1, d + new * dur * 1e-9)
+            seen.add(corr)
     tr = rec["trace"]
     return {
         "window_s": tr["window_s"], "busy_s": tr["busy_s"],
         "idle_total_s": sum(idle.values()),
         "harness_idle_total_s": sum(tr["idle"].values()),
         "idle_s": dict(sorted(idle.items(), key=lambda kv: -kv[1])),
-        "spans": span_table(recs, main, idle, launched),
+        "spans": span_table(recs, main, idle, launched, graphs),
         "kernels_outside_spans": launched.get(None, (0, 0.0)),
         "kernels": len(events), "kernels_by_launch": by_launch,
         "drift": drift,
