@@ -16,11 +16,13 @@ that is not positive definite gives a non-finite ``ld`` for that matrix only.
 On a CUDA tensor ``cholinv_batched`` launches the kernel or raises (M must be
 inside the gate ``cholinv_supported``: a multiple of 128, at most 1024); on a
 CPU tensor it runs ``cholinv_batched_plain``. ``cholinv_batched.launches``
-counts the launches.
+counts the launches; each call, on either path, adds its B matrices to the
+recorder's ``cholinv_mats`` count (``gpsat_tpu_torch.tracing``).
 """
 
 import torch
 
+from gpsat_tpu_torch import tracing
 from gpsat_tpu_torch.ops import _build
 from gpsat_tpu_torch.ops.cuda_gpr import _GATE_PAD, _check_cuda
 
@@ -77,10 +79,13 @@ def cholinv_batched(A):
         if not cholinv_supported(M):
             raise ValueError(f"cholinv_batched: M={M} is outside the CUDA "
                              "kernel's gate (a multiple of 128, at most 1024)")
-        return _cholinv_launch(A.to(torch.float32).contiguous())
-    if A.device.type == "cpu":
-        return cholinv_batched_plain(A)
-    raise ValueError(f"cholinv_batched: unsupported device {A.device}")
+        out = _cholinv_launch(A.to(torch.float32).contiguous())
+    elif A.device.type == "cpu":
+        out = cholinv_batched_plain(A)
+    else:
+        raise ValueError(f"cholinv_batched: unsupported device {A.device}")
+    tracing.count("cholinv_mats", B)
+    return out
 
 
 cholinv_batched.launches = 0

@@ -45,6 +45,9 @@ route=)``):
 ``sgpr_predict_batched`` is hybrid style. On CUDA tensors the wrappers launch
 their kernels or raise; on CPU tensors they run the plain versions. Every
 matmul here runs in full f32: TF32 is switched off for the duration of a call.
+Each ``sgpr_vg_batched`` call is one ``sgpr.vg`` span of the recorder
+(``gpsat_tpu_torch.tracing``; attrs route, experts, n, m) and each
+``sgpr_predict_batched`` call one ``sgpr.predict`` span (experts, n, m, p).
 """
 
 import contextlib
@@ -52,6 +55,7 @@ import math
 
 import torch
 
+from gpsat_tpu_torch import tracing
 from gpsat_tpu_torch.ops import _build
 from gpsat_tpu_torch.ops.cuda_cholinv import cholinv_batched
 from gpsat_tpu_torch.ops.cuda_gpr import (_GATE_PAD, _KERNEL_IDS, _KERNELS,
@@ -584,7 +588,9 @@ def sgpr_vg_batched(params, X, y, maskf, Z, zmaskf, kernel, jitter,
                          f"gate of route {route!r}")
     fn = {"hybrid": _sgpr_vg_hybrid, "stream": _sgpr_vg_stream,
           "mega": _sgpr_vg_mega}[route]
-    with torch.no_grad(), _full_f32_matmul():
+    with torch.no_grad(), _full_f32_matmul(), tracing.span(
+            "sgpr.vg", route=route, experts=int(X.shape[0]),
+            n=int(X.shape[1]), m=int(Z.shape[1])):
         return fn(params, X, y, maskf, Z, zmaskf, kernel, float(jitter))
 
 
@@ -601,15 +607,17 @@ def sgpr_predict_batched(params, X, y, maskf, Z, zmaskf, Xs, kernel, jitter):
     defeat an f32 factorisation even though the optimiser's objective stayed
     finite; the failed experts (non-finite log-determinant) are refactored
     once with a relative jitter of 1e-4 * kernel_variance. Whether any expert
-    failed is one device-to-host read per call; the refactorisation runs only
-    then.
+    failed is one device-to-host read per call (`tracing.host`); the
+    refactorisation runs only then.
     """
     if not sgpr_vg_supported(kernel, X.shape[2], X.shape[1], Z.shape[1]):
         raise ValueError(f"sgpr_predict_batched: kernel={kernel} "
                          f"D={X.shape[2]} M={Z.shape[1]} is outside the "
                          "fused path's gate")
     jitter = float(jitter)
-    with torch.no_grad(), _full_f32_matmul():
+    with torch.no_grad(), _full_f32_matmul(), tracing.span(
+            "sgpr.predict", experts=int(X.shape[0]), n=int(X.shape[1]),
+            m=int(Z.shape[1]), p=int(Xs.shape[1])):
         X, Z, m, zm, ls, _, sf2, s2, ybar = _prepare(params, X, y, maskf, Z,
                                                      zmaskf)
         Xp = torch.as_tensor(Xs).to(X.device, X.dtype) / ls[:, None, :]
@@ -623,7 +631,7 @@ def sgpr_predict_batched(params, X, y, maskf, Z, zmaskf, Xs, kernel, jitter):
         Kuu, _, _, _ = _kuu(Zs, zm, sf2, kernel, jitter)
         W_u, ld_u = cholinv_batched(Kuu)
         bad = ~torch.isfinite(ld_u)
-        if bool(torch.any(bad)):
+        if bool(tracing.host(torch.any(bad))):
             extra = torch.where(bad, 1e-4 * sf2 + 100.0 * jitter,
                                 torch.zeros_like(sf2))
             W2, _ = cholinv_batched(

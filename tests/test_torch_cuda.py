@@ -866,3 +866,36 @@ def test_host_reads_count_every_read_of_the_device(dev, monkeypatch,
     assert sites.count(("tracing.py", "host")) == reads
     others = {s for s in sites if s != ("tracing.py", "host")}
     assert others <= UPLOAD_SITES, others - UPLOAD_SITES
+
+
+def test_sgpr_spans_hold_the_cards_reads_and_factors(dev):
+    """Route hybrid on the card under the recorder: each sgpr_vg_batched
+    call is one sgpr.vg span that reads nothing and counts the matrices its
+    two cholinv launches factor; each sgpr_predict_batched call is one
+    sgpr.predict span whose one synchronising call, the failed-expert check,
+    is its one host_reads."""
+    from gpsat_tpu_torch import tracing
+    from gpsat_tpu_torch.ops import cuda_sgpr
+    params, X, y, m, Z, zm = make_sgpr_case(dev)
+    B = X.shape[0]
+    Xs = torch.as_tensor(np.random.default_rng(2).uniform(-2, 2, (B, 30, 3)),
+                         dtype=torch.float32, device=dev)
+    tracing.clear()
+
+    def calls():
+        with tracing.enable():
+            for _ in range(2):
+                cuda_sgpr.sgpr_vg_batched(params, X, y, m, Z, zm, "Matern32",
+                                          1e-6, route="hybrid")
+                cuda_sgpr.sgpr_predict_batched(params, X, y, m, Z, zm, Xs,
+                                               "Matern32", 1e-6)
+    sites = synchronising_sites(calls)
+    recs = tracing.snapshot()
+    tracing.clear()
+    vg = [r["counts"] for r in recs if r["name"] == "sgpr.vg"]
+    pred = [r["counts"] for r in recs if r["name"] == "sgpr.predict"]
+    assert vg == [{"cholinv_mats": 2 * B}] * 2
+    assert [c["host_reads"] for c in pred] == [1, 1]
+    # Kuu and B, and Kuu once more where an expert's factor failed
+    assert all(c["cholinv_mats"] in (2 * B, 3 * B) for c in pred)
+    assert sites.count(("tracing.py", "host")) == 2
